@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU and check
+it end to end.
+
+    python3 chip_smoke.py
+
+Phases:
+  1. device  — the card's name and power limit (nvidia-smi)
+  2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc
+               (one nvcc per source, in parallel) for sm_90a
+  3. kernels — each CUDA kernel against its plain PyTorch version on the
+               card, at the serve path's full llama3.2-3b shapes: the packed
+               GEMM (int32 accumulator and bf16 requant output bit-equal),
+               paged decode (bf16 and int8 pools, within 2e-2); with kernel,
+               plain and library times and the bound of each
+  4. serve   — full-width, 28-layer llama3.2-3b from the port's seeded init,
+               8 requests through the paged continuous-batching server under
+               each of the binary, ternary and int8 policies, with every
+               kernel's launch count; a 4-slot server's tokens must equal a
+               1-slot server's; then one profiled 4-slot decode tick per
+               policy (wall time, device busy time, top kernels)
+  5. summary — one line per kernel, then one JSON line of kernel records:
+               ms, plain_ms, bound_ms and library_ms are per decode tick of
+               the serve path (4 slots: 28 layers x {qkv, out, up, down} +
+               lm_head for a GEMM body, 28 launches for paged decode)
+The last line is {"ok": true, "device": {...}} only when every phase passed;
+any failure exits non-zero. Without a CUDA device, or outside a checkout of
+the repository, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# NVIDIA H100 SXM data sheet (dense): the bounds below are against these
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
+
+ARCH = "llama3.2-3b"
+POLICIES = ("binary", "ternary", "int8")
+SLOTS, CACHE_LEN, PAGE_SIZE, REQUESTS, MAX_NEW = 4, 256, 32, 8, 16
+PREFILL_BUCKET = 32          # the serve CLI's 4..16-token prompts land here
+PAGED_POS = (1, 77, 160, 255)  # 4 slots, positions spread over 1..255
+
+BODY_FOR = {"binary": "bgemm_popcount", "ternary": "tgemm_popcount",
+            "int8": "i8gemm"}
+REPLACES = {
+    "i8gemm": "src/repro/kernels/harness.py:240 (gemm, I8_DOT body i8gemm.py:18)",
+    "bgemm_popcount": "src/repro/kernels/harness.py:240 (gemm, BINARY_POPCOUNT "
+                      "body bgemm.py:29)",
+    "tgemm_popcount": "src/repro/kernels/harness.py:240 (gemm, TERNARY_POPCOUNT "
+                      "body tgemm.py:29)",
+    "paged_flash_decode": "src/repro/kernels/paged_attn.py:205 (paged_flash_decode)",
+}
+SOURCE = {"i8gemm": "src/repro_torch/kernels/csrc/gemm.cu",
+          "bgemm_popcount": "src/repro_torch/kernels/csrc/gemm.cu",
+          "tgemm_popcount": "src/repro_torch/kernels/csrc/gemm.cu",
+          "paged_flash_decode": "src/repro_torch/kernels/csrc/paged_attn.cu"}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int, flush: torch.Tensor | None = None) -> float:
+    """Mean device time of fn() over `iters` launches (CUDA events), after
+    one warm-up. With `flush`, a buffer larger than the 50 MB L2 is read
+    before every launch, outside the timed span, so each launch finds its
+    operands cold, as in a decode tick, where the other 27 layers' weights
+    pass through L2 between two uses of a layer's. (Reading, not writing:
+    a written buffer leaves dirty lines whose write-back would be charged
+    to the timed launch.)"""
+    fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        if flush is not None:
+            flush.sum()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+# -- phase 1 -----------------------------------------------------------------
+
+def phase_device() -> str:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{name}; {torch.cuda.device_count()} device(s)")
+    log(line if line else f"nvidia-smi failed: {smi.stderr.strip()}")
+    return name
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+def phase_build() -> None:
+    from repro_torch.kernels import build, harness
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
+        f"{len(logs)} libraries in {time.perf_counter() - t0:.1f}s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    tile = harness.kernel_tile()
+    if tile != harness.Tile():
+        raise RuntimeError(f"compiled GEMM tile {tile} != harness.Tile() {harness.Tile()}")
+    log(f"[build] GEMM tile {tile}")
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+def gemm_shapes(cfg):
+    """(name, N, K, count per decode tick) of the serve path's GEMMs."""
+    h, hk, dh, d, f = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model,
+                       cfg.d_ff)
+    n = cfg.n_layers
+    return [("qkv", (h + 2 * hk) * dh, d, n), ("out", d, h * dh, n),
+            ("up", 2 * f, d, n), ("down", d, f, n), ("lm_head", cfg.vocab, d, 1)]
+
+
+def gemm_operands(body, m, n, k, gen):
+    dev = "cuda"
+    if body.k_per_q == 1:
+        x_ops = (torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev,
+                               generator=gen),)
+        w_ops = (torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev,
+                               generator=gen),)
+    else:
+        def words(r):
+            return torch.randint(-2 ** 31, 2 ** 31 - 1, (r, k // 32),
+                                 dtype=torch.int32, device=dev, generator=gen)
+        x_ops = tuple(words(m) for _ in range(body.n_x))
+        w_ops = tuple(words(n) for _ in range(body.n_w))
+    w_scale = torch.rand(n, device=dev, generator=gen) * 0.1 + 1e-3
+    a_scale = torch.rand(m, device=dev, generator=gen) + 0.1
+    bias = torch.randn(n, device=dev, generator=gen)
+    return x_ops, w_ops, w_scale, a_scale, bias
+
+
+def check_gemm(body, cfg, flush, gen) -> dict:
+    """Kernel vs plain at every serve GEMM shape, M = SLOTS (decode) and
+    M = PREFILL_BUCKET (prefill); returns the per-decode-tick record."""
+    from repro_torch.kernels import harness
+    tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    for m in (SLOTS, PREFILL_BUCKET):
+        for name, n, k, per_tick in gemm_shapes(cfg):
+            x_ops, w_ops, ws, as_, bias = gemm_operands(body, m, n, k, gen)
+            for out, b in (("acc", None), ("requant", None), ("requant", bias)):
+                sc = (None, None) if out == "acc" else (ws, as_)
+                got = harness.gemm(body, x_ops, w_ops, *sc, b, k=k, out=out)
+                want = body.plain(x_ops, w_ops, k)
+                if out == "requant":
+                    want = harness.requant(want, *sc, b).to(torch.bfloat16)
+                    same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+                else:
+                    same = torch.equal(got, want)
+                if not same:
+                    err = (got.float() - want.float()).abs().max().item()
+                    raise AssertionError(f"{body.name} {name} M={m} out={out} "
+                                         f"bias={b is not None}: kernel != plain "
+                                         f"(max abs diff {err})")
+
+            def kern():
+                harness.gemm(body, x_ops, w_ops, ws, as_, k=k)
+
+            def plain():
+                harness.requant(body.plain(x_ops, w_ops, k), ws, as_, None
+                                ).to(torch.bfloat16)
+
+            ms = time_ms(kern, 20, flush)
+            pms = time_ms(plain, 2)
+            nbytes = (sum(t.numel() * t.element_size() for t in x_ops + w_ops)
+                      + 4 * (m + n) + 2 * m * n)
+            ops = 2.0 * m * n * k
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+            lib = None
+            if body.k_per_q == 1 and m > 16:
+                lib = time_ms(lambda: torch._int_mm(x_ops[0], w_ops[0]), 20, flush)
+            log(f"[kernels] {body.name:15s} {name:8s} M={m:3d} N={n:6d} K={k:5d} "
+                f"bit-equal ok  kernel {ms:.4f} ms  plain {pms:.3f} ms  "
+                f"bound {bound:.4f} ms ({'bytes' if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S else 'operations'})"
+                + (f"  torch._int_mm {lib:.4f} ms" if lib is not None else ""))
+            if m == SLOTS:
+                tick["ms"] += per_tick * ms
+                tick["plain_ms"] += per_tick * pms
+                tick["bytes"] += per_tick * nbytes
+                tick["ops"] += per_tick * ops
+    t_bytes = tick["bytes"] / HBM_BYTES_PER_S
+    t_ops = tick["ops"] / INT8_OPS_PER_S
+    return {"name": body.name, "max_abs_err": 0.0, "ms": tick["ms"],
+            "plain_ms": tick["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def check_paged(cfg, flush, gen) -> dict:
+    """Kernel vs plain for the 4-slot decode at PAGED_POS, bf16 and int8
+    pools; returns the per-decode-tick record of the bf16 pool (the serve
+    path's)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attn
+    b, hq, hk, dh = SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    max_pages = CACHE_LEN // PAGE_SIZE
+    num_pages = 1 + b * max_pages
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device="cuda")
+    pages = torch.zeros((b, max_pages), dtype=torch.int32, device="cuda")
+    for r, p in enumerate(PAGED_POS):
+        live = p // PAGE_SIZE + 1
+        pages[r, :live] = 1 + r * max_pages + torch.arange(live, device="cuda")
+    q = torch.randn((b, hq, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    rec = None
+    tol = 2e-2
+    for kv in ("bf16", "int8"):
+        shape = (num_pages, PAGE_SIZE, hk, dh)
+        # K/V ~ N(0, 1), stored as the serve path stores them: bf16, or
+        # int8 codes at the static KV scale (models.attention._kv_quant)
+        k_pool, v_pool = (torch.randn(shape, device="cuda", generator=gen)
+                          for _ in range(2))
+        if kv == "int8":
+            k_pool, v_pool = (torch.clamp(torch.round(t / 0.05), -127, 127).to(torch.int8)
+                              for t in (k_pool, v_pool))
+        else:
+            k_pool, v_pool = k_pool.to(torch.bfloat16), v_pool.to(torch.bfloat16)
+        got = paged_attn.paged_flash_decode(q, k_pool, v_pool, pages, pos)
+        want = paged_attn.paged_decode_plain(q, k_pool, v_pool, pages, pos)
+        err = (got.float() - want.float()).abs().max().item()
+        # the plain version rounds scores, probabilities and the output to
+        # bf16; the kernel keeps f32 to the end: 1 bf16 step at |o| < 4 is
+        # 0.0156, so allow 2e-2 + 2e-2 * |want|
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"paged decode ({kv} pool): max abs err {err} "
+                                 f"outside rtol=atol={tol}")
+        ms = time_ms(lambda: paged_attn.paged_flash_decode(q, k_pool, v_pool,
+                                                            pages, pos), 50, flush)
+        pms = time_ms(lambda: paged_attn.paged_decode_plain(q, k_pool, v_pool,
+                                                             pages, pos), 5)
+        tokens = sum(p + 1 for p in PAGED_POS)
+        nbytes = (2 * tokens * hk * dh * k_pool.element_size()
+                  + 2 * 2 * b * hq * dh + 4 * (b * max_pages + b))
+        ops = 4.0 * tokens * hq * dh
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+        # yardstick: SDPA on the already-gathered KV (gather not timed)
+        s = max_pages * PAGE_SIZE
+        kd = paged_attn.kv_dequant(k_pool[pages.long()].reshape(b, s, hk, dh),
+                                   torch.bfloat16, 0.05)
+        vd = paged_attn.kv_dequant(v_pool[pages.long()].reshape(b, s, hk, dh),
+                                   torch.bfloat16, 0.05)
+        g = hq // hk
+        kd = kd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+        vd = vd.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+        mask = (torch.arange(s, device="cuda")[None, :] <= pos[:, None].long()
+                )[:, None, None, :]
+        qs = q[:, :, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qs, kd, vd,
+                                                             attn_mask=mask),
+                      50, flush)
+        log(f"[kernels] paged_flash_decode {kv} pool B={b} Hq={hq} Hk={hk} dh={dh} "
+            f"pos={list(PAGED_POS)}: max abs err {err:.3e} (rtol=atol={tol})  kernel "
+            f"{ms:.4f} ms  plain {pms:.3f} ms  bound {max(t_bytes, t_ops) * 1e3:.5f} ms "
+            f"(bytes)  sdpa on gathered KV {lib:.4f} ms")
+        if kv == "bf16":
+            n = cfg.n_layers
+            rec = {"name": "paged_flash_decode", "max_abs_err": err, "ms": n * ms,
+                   "plain_ms": n * pms, "bound_ms": n * max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": n * lib}
+    return rec
+
+
+def phase_kernels(cfg, recs: list) -> None:
+    """Appends each kernel's record to `recs` as its check passes."""
+    from repro_torch.kernels import bgemm, i8gemm, tgemm
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.ones(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for body in (i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT):
+        recs.append(check_gemm(body, cfg, flush, gen))
+    recs.append(check_paged(cfg, flush, gen))
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+def prompts(cfg):
+    """The serve CLI's prompts: 4..16 random tokens each, from seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, size=(rng.integers(4, 17),)).astype(np.int32)
+            for _ in range(REQUESTS)]
+
+
+def serve(cfg, sparams, slots):
+    from repro_torch.launch.serve import Request, Server
+    srv = Server(cfg, sparams, slots=slots, cache_len=CACHE_LEN,
+                 page_size=PAGE_SIZE, device="cuda")
+    for i, p in enumerate(prompts(cfg)):
+        srv.submit(Request(i, p, MAX_NEW, seed=i))
+    t0 = time.perf_counter()
+    ticks = srv.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return srv, ticks, dt
+
+
+def phase_serve(cfg0, device_name) -> dict:
+    import repro_torch.kernels as K
+    from repro_torch.launch.serve import tree_nbytes
+    from repro_torch.models import transformer
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    train = transformer.init(cfg0, gen, "cuda")
+    torch.cuda.synchronize()
+    log(f"[serve] {ARCH}: {cfg0.n_layers} layers, d_model {cfg0.d_model}, "
+        f"{cfg0.n_heads}/{cfg0.n_kv_heads} heads, d_ff {cfg0.d_ff}, vocab "
+        f"{cfg0.vocab}; seeded init in {time.perf_counter() - t0:.1f}s")
+    packed = {}
+    for policy in POLICIES:
+        cfg = dataclasses.replace(cfg0, policy=policy)
+        packed[policy] = transformer.pack_for_serve(train, cfg)
+    del train
+    torch.cuda.empty_cache()
+
+    outs = {}
+    K.reset_launches()                    # the main path's run starts here
+    for policy in POLICIES:
+        cfg = dataclasses.replace(cfg0, policy=policy)
+        sp = packed[policy]
+        mib = tree_nbytes(sp) / 2 ** 20
+        before = K.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        srv, ticks, dt = serve(cfg, sp, SLOTS)
+        after = K.launch_counts()
+        runs = {k: after[k] - before[k] for k in after}
+        toks = sum(len(r.out) for r in srv.completed)
+        outs[policy] = {r.rid: r.out for r in srv.completed}
+        log(f"[serve] policy={policy}: packed {mib:.1f} MiB; {len(srv.completed)} "
+            f"requests, {toks} tokens, {ticks} ticks, {dt:.3f} s, "
+            f"{toks / dt:.1f} tok/s on {device_name}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {runs}")
+        if len(srv.completed) != REQUESTS or toks != REQUESTS * MAX_NEW:
+            raise AssertionError(f"{policy}: served {len(srv.completed)} requests, "
+                                 f"{toks} tokens")
+        if not all(0 <= t < cfg.vocab for o in outs[policy].values() for t in o):
+            raise AssertionError(f"{policy}: token ids out of range")
+        for name in (BODY_FOR[policy], "paged_flash_decode"):
+            if runs[name] == 0:
+                raise AssertionError(f"{policy}: kernel {name} never launched")
+    launches = K.launch_counts()          # ... and ends here
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} never launched on the serve path")
+
+    from repro_torch.models.common import ModelCtx
+    for policy in POLICIES:
+        cfg = dataclasses.replace(cfg0, policy=policy)
+        sp = transformer.build_specs(cfg)
+        toks = torch.from_numpy(prompts(cfg)[0]).to("cuda")[None]
+        logits, _ = transformer.prefill(packed[policy], toks, sp, ModelCtx())
+        if logits.shape != (1, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{policy}: prefill logits {tuple(logits.shape)}, "
+                                 f"finite={bool(torch.isfinite(logits).all())}")
+    log(f"[serve] prefill logits finite, shape (1, 1, {cfg0.vocab}), every policy")
+
+    for policy in POLICIES:
+        cfg = dataclasses.replace(cfg0, policy=policy)
+        srv, ticks, dt = serve(cfg, packed[policy], 1)
+        seq = {r.rid: r.out for r in srv.completed}
+        if seq != outs[policy]:
+            bad = [i for i in seq if seq[i] != outs[policy].get(i)]
+            raise AssertionError(f"{policy}: {SLOTS}-slot tokens != 1-slot tokens "
+                                 f"for requests {bad}")
+        log(f"[serve] policy={policy}: {SLOTS}-slot tokens == 1-slot tokens "
+            f"({ticks} sequential ticks, {dt:.3f} s)")
+    for policy in POLICIES:
+        profile_tick(dataclasses.replace(cfg0, policy=policy), packed[policy],
+                     device_name)
+    return launches
+
+
+def profile_tick(cfg, sparams, device_name) -> None:
+    """Where one 4-slot decode tick's time goes: host wall time, device busy
+    time and kernel count from torch.profiler, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx
+    max_pages = CACHE_LEN // PAGE_SIZE
+    num_pages = 1 + SLOTS * max_pages
+    cache = transformer.init_cache(cfg, num_pages, PAGE_SIZE, kv_dtype=torch.bfloat16,
+                                   device="cuda")
+    pages = (1 + torch.arange(SLOTS * max_pages, dtype=torch.int32, device="cuda")
+             ).reshape(SLOTS, max_pages)
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device="cuda")
+    toks = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+    sp = transformer.build_specs(cfg)
+
+    def tick():
+        transformer.decode_step(sparams, cache, toks, pos, sp, ModelCtx(), pages=pages)
+
+    tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tick()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 5 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tick()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    if not kernels:
+        log(f"[profile] policy={cfg.policy}: decode tick {wall:.2f} ms wall; device "
+            f"time not measured (the profiler recorded no device events)")
+        return
+    log(f"[profile] policy={cfg.policy}: decode tick {wall:.2f} ms wall, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f} %), {len(kernels)} kernels on "
+        f"{device_name}; top: " + ", ".join(f"{n[:40]} {t:.3f} ms" for n, t in top))
+
+
+# -- driver ------------------------------------------------------------------
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch.configs import get_config
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
+        return 1
+    cfg = get_config(ARCH)
+    failures = []
+    recs, launches = [], {}
+    device_name = phase_device()
+    for phase, fn in (("build", phase_build),
+                      ("kernels", lambda: phase_kernels(cfg, recs)),
+                      ("serve", lambda: launches.update(phase_serve(cfg, device_name)))):
+        t0 = time.perf_counter()
+        try:
+            fn()
+            log(f"[{phase}] ok in {time.perf_counter() - t0:.1f}s")
+        except Exception:                 # report every phase, then fail
+            failures.append(phase)
+            log(f"[{phase}] FAILED:\n{traceback.format_exc()}")
+            if phase == "build":
+                break
+    checked = {r["name"] for r in recs}
+    names = list(REPLACES)
+    log("[summary] " + "; ".join(
+        f"{n}: launches {launches.get(n, 0)}, check "
+        f"{'ok' if n in checked else 'FAILED'}" for n in names))
+    if failures:
+        log(f"chip_smoke: FAILED phases {failures}")
+        return 1
+    kernels = []
+    for r in recs:
+        kernels.append({"name": r["name"], "route": "cuda", "source": SOURCE[r["name"]],
+                        "replaces": REPLACES[r["name"]],
+                        "launches": launches[r["name"]],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

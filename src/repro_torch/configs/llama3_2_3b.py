@@ -1,0 +1,10 @@
+"""llama3.2-3b [dense] — small llama3, GQA kv=8. [hf:meta-llama/Llama-3.2-1B; unverified]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3.2-3b", family="dense",
+    n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8,
+    d_ff=8192, vocab=128_256,
+    act_fn="silu", gated_ffn=True, rope_theta=500_000.0,
+    policy="w-ternary", microbatches=2, param_dtype="bfloat16",
+)

@@ -1,0 +1,109 @@
+"""Bit-plane packing — BrainTTA's v_C operands-per-word storage (§IV-B),
+counterpart of `repro.core.pack`.
+
+The contraction (K) axis is packed into 32-bit words, bit k of word j
+holding the code of operand 32*j + k, so the words are bit-identical to the
+JAX package's:
+
+  binary : K/32 words, bit = 1 encodes +1
+  ternary: two planes (mask, sign) of K/32 words each
+  int8   : native int8 codes (no packing)
+
+torch has limited uint32 support (no `>>` for uint32 on the CPU), so the
+port stores every packed word as **int32 with its bits unchanged**. int32
+`>>` is arithmetic, so every shift below is followed by a mask, and the
+popcount of the plain versions is a SWAR count in int64. Packing always
+happens along the LAST axis; K must be a multiple of 32.
+"""
+from __future__ import annotations
+
+import torch
+
+WORD = 32  # bits per packed word
+
+
+def _check_k(k: int) -> None:
+    if k % WORD:
+        raise ValueError(f"packing axis length {k} not a multiple of {WORD}")
+
+
+def _to_i32_bits(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def pack_bits(codes: torch.Tensor) -> torch.Tensor:
+    """Pack 0/1 codes (last axis = K) into int32 words (last axis K/32).
+
+    Bit k of word j holds code[..., j*32+k] (little-endian within the word).
+    """
+    _check_k(codes.shape[-1])
+    c = codes.to(torch.int64).reshape(*codes.shape[:-1], codes.shape[-1] // WORD, WORD)
+    shifts = torch.arange(WORD, dtype=torch.int64, device=codes.device)
+    return _to_i32_bits((c << shifts).sum(dim=-1))
+
+
+def unpack_bits(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Inverse of pack_bits -> uint8 codes with last axis k."""
+    shifts = torch.arange(WORD, dtype=torch.int32, device=words.device)
+    bits = (words.to(torch.int32).unsqueeze(-1) >> shifts) & 1   # mask after >>
+    return bits.reshape(*words.shape[:-1], words.shape[-1] * WORD)[..., :k].to(torch.uint8)
+
+
+def popcount32(v: torch.Tensor) -> torch.Tensor:
+    """Population count of int32 words (all 32 bits, sign bit included) as
+    int32 — a SWAR count in int64, since torch has no popcount op."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+# -- binary ------------------------------------------------------------------
+
+def pack_binary(values: torch.Tensor) -> torch.Tensor:
+    """Pack {-1,+1} float values: bit=1 encodes +1 (values >= 0)."""
+    return pack_bits(values >= 0)
+
+
+def unpack_pm1_i8(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Unpack bit-plane words to ±1 int8 along a last axis of length k."""
+    return unpack_bits(words, k).to(torch.int8) * 2 - 1
+
+
+# -- ternary -----------------------------------------------------------------
+
+def pack_ternary(values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack {-1,0,+1} floats into (mask_words, sign_words) planes."""
+    return pack_bits(values != 0), pack_bits(values < 0)
+
+
+def unpack_ternary_i8(mask_words: torch.Tensor, sign_words: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """Unpack trit planes to {-1,0,+1} int8."""
+    mask = unpack_bits(mask_words, k).to(torch.int8)
+    sign = unpack_bits(sign_words, k).to(torch.int8)
+    return mask * (1 - 2 * sign)
+
+
+# -- packed dot products (the XNOR/gated-XNOR algebra, §II-A) ----------------
+
+def binary_dot_words(x_words: torch.Tensor, w_words: torch.Tensor, k: int) -> torch.Tensor:
+    """Binary dot over packed words (last axis contracted, broadcasting):
+    dot = K - 2*popcount(x ^ w)."""
+    mismatch = popcount32(torch.bitwise_xor(x_words, w_words)).sum(dim=-1, dtype=torch.int32)
+    return k - 2 * mismatch
+
+
+def ternary_dot_words(xm: torch.Tensor, xs: torch.Tensor, wm: torch.Tensor,
+                      ws: torch.Tensor) -> torch.Tensor:
+    """Gated-XNOR dot over packed trit planes (last axis contracted):
+    dot = popcount(xm & wm) - 2*popcount(xm & wm & (xs ^ ws))."""
+    active = torch.bitwise_and(xm, wm)
+    disagree = torch.bitwise_and(active, torch.bitwise_xor(xs, ws))
+
+    def pc(v):
+        return popcount32(v).sum(dim=-1, dtype=torch.int32)
+
+    return pc(active) - 2 * pc(disagree)

@@ -1,0 +1,91 @@
+"""QuantizedLinear, serve half — counterpart of `repro.core.qlinear`.
+
+`init` draws the train-layout weight w[in, out] ~ normal / sqrt(in_dim) like
+the reference; `pack_params` converts it to the packed serve layout of the
+binary, ternary and int8 operating points; `apply(mode="serve")` runs the
+layer through `kernels.dispatch.qgemm`. Packed words are int32 with the
+bits of the reference's uint32 words (see `core.pack`).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import pack
+from .precision import LayerQuant
+from .quantize import int8_codes, int8_scale, ternarize
+
+Params = dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class QLinearSpec:
+    in_dim: int
+    out_dim: int
+    lq: LayerQuant = LayerQuant()
+    use_bias: bool = False
+    name: str = "qlinear"
+
+
+def init(generator: torch.Generator, spec: QLinearSpec, dtype=torch.float32,
+         device="cpu") -> Params:
+    """Train-layout params: w (in, out) ~ N(0, 1) / sqrt(in_dim), zero bias.
+    Expert-stacked linears are not ported yet."""
+    w = torch.randn((spec.in_dim, spec.out_dim), generator=generator,
+                    dtype=torch.float32, device=device)
+    p: Params = {"w": (w * (1.0 / spec.in_dim ** 0.5)).to(dtype)}
+    if spec.use_bias:
+        p["b"] = torch.zeros((spec.out_dim,), dtype=dtype, device=device)
+    return p
+
+
+def pack_params(p: Params, spec: QLinearSpec) -> Params:
+    """Convert train-layout params to the packed serve layout.
+
+    binary : w_packed  int32[out, in/32]   (bit = +1)
+             w_scale   f32[out]            (XNOR-Net per-channel alpha)
+    ternary: w_mask/w_sign int32[out, in/32]
+             w_scale   f32[out]
+    int8   : w_q       int8[in, out]       (K-major)
+             w_scale   f32[out]
+    `a_scale` (f32 scalar) is the calibrated activation scale for int8 acts.
+    The reference's stacked bit-plane twin (`w_planes`) feeds cells that are
+    not ported yet and is not produced.
+    """
+    w = p["w"].to(torch.float32)
+    prec = spec.lq.weights.precision
+    out: Params = {}
+    wt = w.transpose(-1, -2).contiguous()          # out, in (K last)
+    if prec == "binary":
+        out["w_packed"] = pack.pack_binary(torch.sign(wt) + (wt == 0))
+        out["w_scale"] = torch.abs(wt).mean(dim=-1)
+    elif prec == "ternary":
+        q = ternarize(wt, spec.lq.weights.ternary_threshold)
+        out["w_mask"], out["w_sign"] = pack.pack_ternary(q)
+        nz = torch.abs(q).sum(dim=-1) + 1e-6
+        out["w_scale"] = (torch.abs(wt) * torch.abs(q)).sum(dim=-1) / nz
+    elif prec == "int8":
+        s = int8_scale(w, axis=(w.ndim - 2,))      # reduce in_dim
+        out["w_q"] = int8_codes(w, s)
+        out["w_scale"] = s.squeeze(w.ndim - 2)
+    else:
+        raise NotImplementedError(
+            f"weight precision {prec!r} is not yet ported (binary, ternary "
+            f"and int8 are)")
+    if spec.lq.acts.precision == "int8":
+        out["a_scale"] = torch.tensor(0.05, dtype=torch.float32, device=w.device)
+    if "b" in p:
+        out["b"] = p["b"].to(torch.float32)
+    return out
+
+
+def apply(p: Params, x: torch.Tensor, spec: QLinearSpec, *,
+          mode: str = "serve", op=None) -> torch.Tensor:
+    """Apply the packed layer: one dispatch into the precision-keyed GEMM
+    registry (`op` is a `kernels.dispatch.OperatingPoint`; None derives it
+    from the spec). Only mode="serve" is ported; QAT training is not."""
+    if mode != "serve":
+        raise NotImplementedError(f"mode={mode!r} is not yet ported")
+    from repro_torch.kernels.dispatch import qgemm
+    return qgemm(p, x, spec, op)

@@ -1,0 +1,162 @@
+"""The output-stationary packed GEMM with its fused requant epilogue —
+counterpart of `repro.kernels.harness`.
+
+One CUDA template (`csrc/gemm.cu`) serves every precision; a `MacBody`
+names the compile-time MAC body it instantiates, the operand layout it
+takes, and its plain PyTorch version (`plain`), which states the same
+algebra with torch ops. `gemm` launches the kernel for CUDA tensors and runs
+the plain version for CPU tensors; it never falls back from one to the
+other.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Callable, Sequence
+
+import torch
+
+from .build import Kernel, load
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def gemm_kernel() -> Kernel:
+    """A launcher of `repro_gemm` (csrc/gemm.cu) with its own launch count;
+    each MacBody holds one, so launches are counted per body."""
+    return Kernel("gemm", "repro_gemm",
+                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """The CUDA kernel's block shape: bm x bn outputs per block, bkq 32-bit
+    words of K per shared-memory stage. Compile-time constants of
+    `csrc/gemm.cu`; `kernel_tile()` reads them from the built library."""
+    bm: int = 16
+    bn: int = 32
+    bkq: int = 32
+
+
+def kernel_tile() -> Tile:
+    fn = load("gemm").repro_gemm_tile
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = None
+    vals = [ctypes.c_int() for _ in range(3)]
+    fn(*(ctypes.byref(v) for v in vals))
+    return Tile(*(v.value for v in vals))
+
+
+@dataclasses.dataclass(frozen=True)
+class MacBody:
+    """One MAC body of the GEMM template.
+
+    body_id: the BODY_* constant of csrc/gemm.cu. n_x / n_w: activation and
+    weight operand planes. k_per_q: K elements per storage unit of each
+    operand (32 for packed words, 1 for int8 codes). w_kmajor: weights are
+    (K, N) instead of (N, K/k_per_q). plain(x_ops, w_ops, k) -> (M, N)
+    int32 dot is the body's plain PyTorch version; kernel launches the
+    CUDA instantiation and counts its launches."""
+    name: str
+    body_id: int
+    n_x: int
+    n_w: int
+    k_per_q: int
+    plain: Callable
+    kernel: Kernel
+    w_kmajor: bool = False
+
+
+def requant(dot, w_scale, a_scale, bias):
+    """The fused requant epilogue, defined once: dot * w_scale[n] *
+    a_scale[m] + bias[n] in f32, in that order. Any scale/bias may be None
+    (identity). Callers cast the result themselves."""
+    y = dot.to(torch.float32)
+    if w_scale is not None:
+        y = y * w_scale[None, :]
+    if a_scale is not None:
+        y = y * a_scale[:, None]
+    if bias is not None:
+        y = y + bias[None, :]
+    return y
+
+
+def _check(body: MacBody, x_ops, w_ops, k: int):
+    if len(x_ops) != body.n_x or len(w_ops) != body.n_w:
+        raise ValueError(f"{body.name}: want {body.n_x} activation and "
+                         f"{body.n_w} weight operands")
+    if k % body.k_per_q or (body.k_per_q == 1 and k % 4):
+        raise ValueError(f"{body.name}: K={k} not a multiple of the storage unit")
+    m = x_ops[0].shape[0]
+    n = w_ops[0].shape[1] if body.w_kmajor else w_ops[0].shape[0]
+    kq = k // body.k_per_q
+    for xo in x_ops:
+        if tuple(xo.shape) != (m, kq):
+            raise ValueError(f"{body.name}: activation operand {tuple(xo.shape)} "
+                             f"!= {(m, kq)}")
+    want_w = (kq, n) if body.w_kmajor else (n, kq)
+    for wo in w_ops:
+        if tuple(wo.shape) != want_w:
+            raise ValueError(f"{body.name}: weight operand {tuple(wo.shape)} "
+                             f"!= {want_w}")
+    return m, n
+
+
+def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
+         w_ops: Sequence[torch.Tensor], w_scale: torch.Tensor | None,
+         a_scale: torch.Tensor | None, bias: torch.Tensor | None = None, *,
+         k: int, out: str = "requant") -> torch.Tensor:
+    """Run `body` through the shared output-stationary GEMM.
+
+    x_ops: n_x tensors (M, K/k_per_q); w_ops: n_w tensors (N, K/k_per_q), or
+    (K, N) when body.w_kmajor; packed words are int32, int8 codes int8.
+    w_scale (N,) f32, a_scale (M,) f32, bias (N,) f32 or None
+    -> (M, N) bf16. out="acc" returns the raw (M, N) int32 dot instead; the
+    scales are then unused and may be None. Ragged M and N need no padding.
+    """
+    if out not in ("requant", "acc"):
+        raise ValueError(f"out={out!r}")
+    m, n = _check(body, x_ops, w_ops, k)
+    if out == "requant" and (w_scale is None or a_scale is None):
+        raise ValueError("requant needs w_scale and a_scale")
+    dev = x_ops[0].device
+    if dev.type == "cpu":
+        dot = body.plain(x_ops, w_ops, k)
+        if out == "acc":
+            return dot
+        return requant(dot, w_scale, a_scale, bias).to(torch.bfloat16)
+    if dev.type != "cuda":
+        raise ValueError(f"gemm: unsupported device {dev}")
+    ops = list(x_ops) + list(w_ops)
+    scales = [] if out == "acc" else [w_scale, a_scale]
+    if bias is not None and out == "requant":
+        scales.append(bias)
+    for t in ops + scales:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{body.name}: every operand must be a contiguous "
+                             f"tensor on {dev}")
+    for t in scales:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{body.name}: scales and bias must be float32")
+    want = torch.int8 if body.k_per_q == 1 else torch.int32
+    if any(t.dtype != want for t in ops):
+        raise ValueError(f"{body.name}: operands must be {want}")
+    if body.w_kmajor and n % 4:
+        raise ValueError(f"{body.name}: K-major int8 weights need N % 4 == 0")
+    y = torch.empty((m, n), dtype=torch.int32 if out == "acc" else torch.bfloat16,
+                    device=dev)
+    if m == 0:
+        return y
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    x1 = x_ops[1] if body.n_x > 1 else None
+    w1 = w_ops[1] if body.n_w > 1 else None
+    rq = out == "requant"
+    kw = k // 4 if body.k_per_q == 1 else k // 32     # words per activation row
+    body.kernel(body.body_id, ptr(x_ops[0]), ptr(x1), ptr(w_ops[0]), ptr(w1),
+                ptr(w_scale) if rq else None, ptr(a_scale) if rq else None,
+                ptr(bias) if rq else None, y.data_ptr(), int(not rq),
+                m, n, kw, k)
+    return y

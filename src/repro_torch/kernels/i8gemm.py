@@ -1,0 +1,22 @@
+"""int8 MAC body — the 8-bit vMAC path (counterpart of `repro.kernels.i8gemm`).
+
+(M, K) int8 activation codes x K-major (K, N) int8 weight codes -> int32.
+The CUDA body (`csrc/gemm.cu`, BODY_I8) does four MACs per `__dp4a`; the
+plain version below is the same integer dot in torch.
+"""
+from __future__ import annotations
+
+import torch
+
+from .harness import MacBody, gemm_kernel
+
+
+def i8_dot_plain(x_ops, w_ops, k: int) -> torch.Tensor:
+    """(M, K) int8 x (K, N) int8 -> (M, N) int32. Exact: in float64 every
+    product and every partial sum is an integer below 127^2 * K < 2^53, so
+    the sum does not depend on its order (float32 would round past 2^24)."""
+    return (x_ops[0].to(torch.float64) @ w_ops[0].to(torch.float64)).to(torch.int32)
+
+
+I8_DOT = MacBody("i8gemm", body_id=0, n_x=1, n_w=1, k_per_q=1,
+                 plain=i8_dot_plain, kernel=gemm_kernel(), w_kmajor=True)

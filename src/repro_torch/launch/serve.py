@@ -1,0 +1,352 @@
+"""Batched serving driver — counterpart of `repro.launch.serve` (the
+`Server` core): continuous batching over the packed serve parameters with
+a paged KV cache.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --policy binary
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --policy binary
+
+What runs, as in the reference:
+  * a fixed `slots` decode batch fed from a request FIFO; admission is
+    metered by the page budget — a request waits until the free pages cover
+    its whole lifetime plus every running request's remaining headroom, so
+    mid-flight page allocation never fails
+  * prefill per admitted request, right-padded to a power-of-two bucket
+    (`default_buckets`), logits taken at the prompt's last real token; its
+    KV is scattered into the slot's pages
+  * one fused decode tick advances every active slot with a per-slot
+    position vector (RoPE phase, write index and mask follow each slot's
+    own clock); inactive rows decode token 0 at position 0 through an
+    all-scratch page row
+  * sampling on the host (`models.common.sample_token`: greedy, or a
+    temperature draw keyed by (seed, token index)); greedy ticks take the
+    argmax on the device and move only (slots,) ids
+  * retirement at max_new, at EOS, or when the cache is full, freeing the
+    slot's pages
+
+Not yet ported (asking for one raises): prefix sharing and copy-on-write,
+preemption and swap, chunked prefill, speculative decoding, mesh serving,
+the contiguous-slab cache, and dispatch-ahead (the host schedules each tick
+after the previous one has landed).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.launch import kv_cache
+from repro_torch.launch.kv_cache import NULL_PAGE, PageTable, pages_for
+from repro_torch.models import transformer
+from repro_torch.models.common import ModelCtx, sample_token
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    temperature: float = 0.0   # 0 => greedy argmax
+    seed: int = 0              # stateless sampling stream (with token index)
+    eos: int | None = None     # stop token: retire the step it is sampled
+    out: list = dataclasses.field(default_factory=list)
+
+
+def default_buckets(lo: int, hi: int) -> tuple[int, ...]:
+    """Powers-of-two prefill buckets in [lo, hi], always ending at hi."""
+    out, b = [], max(lo, 1)
+    while b < hi:
+        out.append(b)
+        b *= 2
+    return tuple(out) + (hi,)
+
+
+class Server:
+    def __init__(self, cfg, params, *, slots: int = 4, cache_len: int = 256,
+                 page_size: int = 32, num_pages: int | None = None,
+                 ctx: ModelCtx | None = None, device=None):
+        self.device = resolve_device(device)
+        if params["embed"]["w"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed']['w'].device}, "
+                             f"the server runs on {self.device}")
+        if any(k != "attn" for k in cfg.block_pattern):
+            raise NotImplementedError("only full-attention decoders are ported "
+                                      "(no exact-length prefill yet)")
+        self.cfg = cfg
+        self.sp = transformer.build_specs(cfg)
+        self.params = params
+        self.ctx = ctx or ModelCtx()
+        self.slots = slots
+        self.page_size = page_size
+        if cache_len % page_size:
+            cache_len += page_size - cache_len % page_size
+        self.cache_len = cache_len
+        self.buckets = default_buckets(page_size, cache_len)
+        self.max_pages = cache_len // page_size
+        if num_pages is None:
+            num_pages = slots * self.max_pages + 1   # +1: scratch page 0
+        self.pt = PageTable(num_pages, page_size, slots, self.max_pages)
+        # the pool holds what prefill/decode store: the compute dtype,
+        # unless the int8-requant cache is configured
+        kv_dtype = None if cfg.kv_cache_dtype == "int8" else self.ctx.dtype
+        self.cache = transformer.init_cache(cfg, num_pages, page_size,
+                                            kv_dtype=kv_dtype, device=self.device)
+        self.slot_req: list[Request | None] = [None] * slots
+        self.slot_pos = np.zeros(slots, np.int32)
+        self.queue: list[Request] = []
+        self.completed: list[Request] = []
+        self.stats = {"prefills": 0, "decode_ticks": 0, "peak_pages": 0}
+
+    # -- request lifecycle -----------------------------------------------------
+
+    def submit(self, req: Request):
+        if len(req.prompt) > self.buckets[-1]:
+            raise ValueError(f"prompt len {len(req.prompt)} exceeds max bucket "
+                             f"{self.buckets[-1]}")
+        need = pages_for(self._need_tokens(req), self.page_size)
+        if need > self.pt.usable_pages:
+            raise ValueError(
+                f"request needs {need} pages but the pool only has "
+                f"{self.pt.usable_pages} usable; raise --num-pages or shrink "
+                f"the request")
+        self.queue.append(req)
+
+    def _bucket(self, n: int) -> int:
+        return next(b for b in self.buckets if b >= n)
+
+    def _need_tokens(self, req: Request) -> int:
+        """KV tokens this request can write over its whole lifetime."""
+        return min(len(req.prompt) + max(req.max_new, 1) - 1, self.cache_len)
+
+    def _sample(self, req: Request, logits_row) -> int:
+        return sample_token(logits_row, req.temperature, req.seed, len(req.out))
+
+    # -- admission -------------------------------------------------------------
+
+    def _outstanding_demand(self) -> int:
+        """Pages active slots may still claim (their reserved headroom)."""
+        return sum(
+            pages_for(self._need_tokens(r), self.page_size) - int(self.pt.held[s])
+            for s, r in enumerate(self.slot_req) if r is not None)
+
+    def _admission_ok(self, req: Request) -> bool:
+        """Lifetime reservation: free pages must cover this request's whole
+        lifetime plus every running request's remaining headroom."""
+        lifetime = pages_for(self._need_tokens(req), self.page_size)
+        return self.pt.free_pages - self._outstanding_demand() >= lifetime
+
+    def _try_start(self, s: int) -> bool:
+        """Prefill + admit the queue head into slot s (False: it must wait)."""
+        req = self.queue[0]
+        if not self._admission_ok(req):
+            return False   # FIFO: the head waits for pages; no jumping
+        self.queue.pop(0)
+        n = len(req.prompt)
+        scatter_ids = self.pt.admit(s, n)
+        bucket = self._bucket(n)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :n] = req.prompt
+        logits, rc = transformer.prefill(
+            self.params, torch.from_numpy(toks).to(self.device), self.sp,
+            self.ctx, cache_len=self.cache_len, last_pos=[n - 1])
+        self.stats["prefills"] += 1
+        req.out.append(self._sample(req, logits[0, -1].cpu().numpy()))
+        pad = pages_for(bucket, self.page_size) - len(scatter_ids)
+        if pad:
+            scatter_ids = np.concatenate(
+                [scatter_ids, np.full(pad, NULL_PAGE, np.int32)])
+        kv_cache.scatter_prefill(self.cache, rc, scatter_ids, self.page_size)
+        self.slot_req[s] = req
+        self.slot_pos[s] = n
+        return True
+
+    def _admit(self):
+        """Fill free slots from the FIFO head."""
+        for s in range(self.slots):
+            if self.slot_req[s] is not None:
+                continue
+            if not self.queue or not self._try_start(s):
+                break
+
+    # -- serving loop ----------------------------------------------------------
+
+    def _retire(self):
+        """Clear completed slots: out of budget, cache full, or EOS sampled."""
+        for s, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            eos = req.eos is not None and req.eos in req.out
+            if eos:
+                del req.out[req.out.index(req.eos) + 1:]
+            if (len(req.out) >= req.max_new or eos
+                    or self.slot_pos[s] >= self.cache_len - 1):
+                self.completed.append(req)
+                self.pt.retire(s)
+                self.slot_req[s] = None
+                self.slot_pos[s] = 0
+
+    def _prepare_pages(self):
+        """Extend every running slot's coverage through this tick's write."""
+        for s, req in enumerate(self.slot_req):
+            if req is not None:
+                self.pt.extend(s, int(self.slot_pos[s]) + 1)
+
+    def step(self) -> bool:
+        """One server tick: admit -> retire -> page work -> one fused decode
+        over every slot -> sample the landed tokens -> retire. Returns
+        whether work remains."""
+        self._admit()
+        self._retire()
+        self._prepare_pages()
+        self.stats["peak_pages"] = max(self.stats["peak_pages"],
+                                       self.pt.usable_pages - self.pt.free_pages)
+        active = [s for s, r in enumerate(self.slot_req) if r is not None]
+        if active:
+            reqs = [self.slot_req[s] for s in active]
+            tokens = np.zeros((self.slots, 1), np.int32)
+            pos = np.zeros(self.slots, np.int32)
+            for s, r in zip(active, reqs):
+                tokens[s, 0] = r.out[-1]
+                pos[s] = self.slot_pos[s]
+            # rows of idle slots point at the scratch page only
+            table = self.pt.table.copy()
+            idle = np.ones(self.slots, bool)
+            idle[active] = False
+            table[idle] = NULL_PAGE
+            dev = self.device
+            logits, self.cache = transformer.decode_step(
+                self.params, self.cache, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(pos).to(dev), self.sp, self.ctx,
+                pages=torch.from_numpy(table).to(dev))
+            self.stats["decode_ticks"] += 1
+            for s in active:
+                self.slot_pos[s] += 1
+            if not any(r.temperature > 0 for r in reqs):
+                # argmax on the device; ties break to the lowest index, as
+                # sample_token's np.argmax does
+                nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+                for s, r in zip(active, reqs):
+                    r.out.append(int(nxt[s]))
+            else:
+                rows = logits[:, 0].cpu().numpy()
+                for s, r in zip(active, reqs):
+                    r.out.append(self._sample(r, rows[s]))
+        self._retire()
+        return bool(self.queue or any(r is not None for r in self.slot_req))
+
+    def run(self) -> int:
+        ticks = 0
+        while self.queue or any(r is not None for r in self.slot_req):
+            self.step()
+            ticks += 1
+        return ticks
+
+
+#: precision policies whose every layer resolves to a ported GEMM cell
+PORTED_POLICIES = ("binary", "ternary", "int8")
+
+#: flags of reference features this port has not reached yet
+_NOT_PORTED = ("prefix_share", "preempt", "chunk_tokens", "spec_draft", "mesh",
+               "contiguous", "dispatch_ahead")
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--policy", default=None,
+                    help="precision policy (default: the arch's); binary, "
+                         "ternary and int8 are ported")
+    ap.add_argument("--page-size", type=int, default=32)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="pool size; < slots*cache_len/page_size oversubscribes "
+                         "and admission throttles on the page budget")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="stop token id: a request retires the step this "
+                         "token is sampled")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request sampling temperature (0 = greedy); "
+                         "stateless rng keyed by (seed, token index)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain PyTorch versions)")
+    # reference features that are not ported yet: accepted so that asking
+    # for one fails loudly instead of being ignored
+    ap.add_argument("--prefix-share", action="store_true")
+    ap.add_argument("--preempt", action="store_true")
+    ap.add_argument("--chunk-tokens", type=int, default=0)
+    ap.add_argument("--spec-draft", default=None)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--contiguous", action="store_true")
+    ap.add_argument("--dispatch-ahead", action="store_true")
+    return ap
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    asked = [f for f in _NOT_PORTED if getattr(args, f)]
+    if asked:
+        flags = ", ".join("--" + f.replace("_", "-") for f in asked)
+        raise SystemExit(f"{flags}: not yet ported to repro_torch")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.policy:
+        cfg = dataclasses.replace(cfg, policy=args.policy)
+    if cfg.policy not in PORTED_POLICIES:
+        raise SystemExit(f"--policy {cfg.policy}: not yet ported to repro_torch "
+                         f"(ported: {', '.join(PORTED_POLICIES)})")
+    ctx = ModelCtx(dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = transformer.init(cfg, gen, device)
+    sparams = transformer.pack_for_serve(params, cfg)
+    train_b, serve_b = tree_nbytes(params), tree_nbytes(sparams)
+    del params
+    print(f"packed weights: {train_b / 2**20:.1f} MiB -> {serve_b / 2**20:.1f} MiB "
+          f"({train_b / serve_b:.1f}x smaller, policy={cfg.policy})")
+    srv = Server(cfg, sparams, slots=args.slots, cache_len=args.cache_len,
+                 page_size=args.page_size, num_pages=args.num_pages, ctx=ctx,
+                 device=device)
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab,
+                              size=(rng.integers(4, 17),)).astype(np.int32)
+        srv.submit(Request(i, prompt, args.max_new, temperature=args.temperature,
+                           seed=i, eos=args.eos_id))
+    t0 = time.perf_counter()
+    ticks = srv.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total_new = sum(len(r.out) for r in srv.completed)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    st = srv.stats
+    print(f"served {len(srv.completed)} requests, {total_new} tokens, "
+          f"{ticks} ticks ({st['decode_ticks']} decode, {st['prefills']} "
+          f"prefills), {dt:.3f}s ({total_new / dt:.1f} tok/s on {where})")
+    print(f"page pool: {srv.pt.usable_pages} usable pages x "
+          f"{srv.pt.page_size} tokens, peak {st['peak_pages']} live, "
+          f"{srv.pt.free_pages} free at exit")
+    return srv
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes held by the tensors of a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,37 @@
+"""Shared inputs of the port's JAX-comparison tests (tests/test_torch_*.py):
+the reduced llama3.2-3b under a policy, the JAX package's weights for it,
+and seeded prompts. Weights come from the JAX package's own init and are
+carried to the port through numpy by `repro_torch.bridge`."""
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+
+from repro.configs import get_config as jget_config
+from repro.models import transformer as jtransformer
+from repro_torch.configs import get_config
+
+CACHE_LEN = 32
+PAGE_SIZE = 4
+
+
+@functools.lru_cache(maxsize=None)
+def built(policy: str, n_layers: int = 2):
+    """(jax cfg, port cfg, JAX train params, JAX packed params)."""
+    jcfg = dataclasses.replace(jget_config("llama3.2-3b").reduced(),
+                               policy=policy, n_layers=n_layers)
+    tcfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                               policy=policy, n_layers=n_layers)
+    params = jtransformer.init(jax.random.PRNGKey(0), jcfg)
+    sparams = jtransformer.pack_for_serve(params, jcfg)
+    return jcfg, tcfg, params, sparams
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def prompts(cfg, lens, seed=7):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]

@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `cuda` and skips without a CUDA device; the file
+imports no JAX, so it runs on a machine that has only torch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Bars: the GEMM kernel's int32 accumulator and bf16 requant output are
+bit-equal to the plain version (ragged M and N, with and without bias);
+paged decode is within rtol=atol=2e-5 of the plain version for f32 queries
+(the bar of tests/test_paged_attn.py: the same algebra summed in another
+order) and 2e-2 for bf16 (the plain version rounds scores, probabilities
+and output to bf16, the kernel keeps f32 to the end; one bf16 step at
+|o| < 4 is 0.0156); a reduced model served through the kernels gives a
+4-slot server the tokens of a 1-slot server.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import bgemm, harness, i8gemm, paged_attn, tgemm
+
+BODIES = [i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _operands(body, m, n, k, gen):
+    if body.k_per_q == 1:
+        x = (torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen),)
+        w = (torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen),)
+    else:
+        def words(r):
+            return torch.randint(-2 ** 31, 2 ** 31 - 1, (r, k // 32),
+                                 dtype=torch.int32, generator=gen)
+        x = tuple(words(m) for _ in range(body.n_x))
+        w = tuple(words(n) for _ in range(body.n_w))
+    scales = (torch.rand(n, generator=gen) * 0.1 + 1e-3,
+              torch.rand(m, generator=gen) + 0.1, torch.randn(n, generator=gen))
+    return x, w, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 128, 96), (5, 256, 100), (33, 3072, 200),
+                                   (4, 8192, 3072)])
+@pytest.mark.parametrize("body", BODIES, ids=lambda b: b.name)
+def test_gemm_kernel_bit_equal_to_plain(cuda, body, m, k, n):
+    gen = torch.Generator().manual_seed(m * 1000 + n)
+    x, w, (ws, as_, b) = _operands(body, m, n, k, gen)
+    dev = lambda ts: tuple(t.to(cuda) for t in ts)
+    acc = harness.gemm(body, dev(x), dev(w), None, None, k=k, out="acc")
+    assert torch.equal(acc.cpu(), harness.gemm(body, x, w, None, None, k=k, out="acc"))
+    for bias in (None, b):
+        got = harness.gemm(body, dev(x), dev(w), ws.to(cuda), as_.to(cuda),
+                           None if bias is None else bias.to(cuda), k=k)
+        want = harness.gemm(body, x, w, ws, as_, bias, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8,tol", [(torch.float32, False, 2e-5),
+                                            (torch.float32, True, 2e-5),
+                                            (torch.bfloat16, False, 2e-2),
+                                            (torch.bfloat16, True, 2e-2)])
+@pytest.mark.parametrize("hq,hk,dh", [(24, 8, 128), (4, 2, 32), (4, 4, 64)])
+def test_paged_kernel_matches_plain(cuda, dtype, int8, tol, hq, hk, dh):
+    rng = np.random.default_rng(hq + dh)
+    b, max_pages, page = 4, 8, 32
+    num_pages = 1 + b * max_pages
+    pos = np.asarray([0, 77, 160, 255], np.int32)
+    pages = np.zeros((b, max_pages), np.int32)
+    for r in range(b):
+        live = pos[r] // page + 1
+        pages[r, :live] = 1 + r * max_pages + np.arange(live)
+    pages[:, :1] = 1                                   # an aliased first page
+    q = torch.from_numpy(rng.standard_normal((b, hq, dh)).astype(np.float32)).to(dtype)
+    shape = (num_pages, page, hk, dh)
+    # K/V ~ N(0, 1), stored as the serve path stores them: in the compute
+    # dtype, or int8 codes at the static KV scale
+    pools = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             for _ in range(2)]
+    if int8:
+        pools = [torch.clamp(torch.round(t / 0.05), -127, 127).to(torch.int8)
+                 for t in pools]
+    else:
+        pools = [t.to(dtype) for t in pools]
+    args = (q, *pools, torch.from_numpy(pages), torch.from_numpy(pos))
+    want = paged_attn.paged_flash_decode(*args)
+    got = paged_attn.paged_flash_decode(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["binary", "ternary", "int8"])
+def test_reduced_serve_batched_equals_sequential_on_card(cuda, policy):
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), policy=policy,
+                              n_layers=4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sp = transformer.pack_for_serve(transformer.init(cfg, gen, cuda), cfg)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
+               for n in (3, 9, 14, 5, 30, 1)]
+
+    def run(slots):
+        srv = Server(cfg, sp, slots=slots, cache_len=64, page_size=8, device=cuda)
+        for i, p in enumerate(prompts):
+            srv.submit(Request(i, p, 8, seed=i))
+        srv.run()
+        return {r.rid: r.out for r in srv.completed}
+
+    assert run(4) == run(1)

@@ -1,0 +1,91 @@
+"""The port's server against the JAX package's, in f32 on the CPU.
+
+Weights are the JAX package's own (`transformer.init` + `pack_for_serve`),
+carried over through numpy by `repro_torch.bridge`. Bars:
+  * the port's paged continuous-batching server emits exactly the JAX
+    server's greedy tokens (jnp backend) for binary, ternary and int8;
+  * the port's batched server equals its one-slot (sequential) server;
+  * EOS retirement, and the CLI's refusal of unported features.
+"""
+import jax.numpy as jnp
+import pytest
+import torch
+
+from _torch_port import CACHE_LEN, PAGE_SIZE, built, np_tree, prompts
+from repro.launch.serve import Request as JRequest
+from repro.launch.serve import Server as JServer
+from repro.models.common import ModelCtx as JCtx
+from repro_torch import bridge
+from repro_torch.launch import serve as tserve
+from repro_torch.launch.kv_cache import NULL_PAGE
+from repro_torch.models.common import ModelCtx
+
+PROMPT_LENS = (3, 9, 14, 5)
+MAX_NEW = 6
+CTX = ModelCtx(dtype=torch.float32)
+
+
+def _jax_serve(policy, ps, slots=2):
+    jcfg, _, _, sparams = built(policy)
+    srv = JServer(jcfg, sparams, slots=slots, cache_len=CACHE_LEN,
+                  page_size=PAGE_SIZE,
+                  ctx=JCtx(mode="serve", backend="jnp", dtype=jnp.float32))
+    for i, p in enumerate(ps):
+        srv.submit(JRequest(i, p, MAX_NEW))
+    srv.run()
+    return {r.rid: r.out for r in srv.completed}
+
+
+def _port_serve(policy, ps, slots=2, **req_kw):
+    _, tcfg, _, sparams = built(policy)
+    tp = bridge.from_jax_params(np_tree(sparams), tcfg)
+    srv = tserve.Server(tcfg, tp, slots=slots, cache_len=CACHE_LEN,
+                        page_size=PAGE_SIZE, ctx=CTX, device="cpu")
+    for i, p in enumerate(ps):
+        srv.submit(tserve.Request(i, p, MAX_NEW, seed=i, **req_kw))
+    srv.run()
+    assert len(srv.completed) == len(ps)
+    assert srv.pt.free_pages == srv.pt.usable_pages     # every page came back
+    return {r.rid: r.out for r in srv.completed}
+
+
+@pytest.mark.parametrize("policy", ["binary", "ternary", "int8"])
+def test_port_server_tokens_equal_jax_server(policy):
+    ps = prompts(built(policy)[0], PROMPT_LENS)
+    want = _jax_serve(policy, ps)
+    got = _port_serve(policy, ps)
+    assert got == want, (policy, got, want)
+
+
+@pytest.mark.parametrize("policy", ["binary", "int8"])
+def test_port_batched_equals_sequential(policy):
+    ps = prompts(built(policy)[0], (3, 9, 14, 5, 30, 1))
+    batched = _port_serve(policy, ps, slots=4)
+    assert batched == _port_serve(policy, ps, slots=1)
+    # temperature draws are keyed by (seed, token index): batching-invariant
+    hot = _port_serve(policy, ps, slots=4, temperature=0.8)
+    assert hot == _port_serve(policy, ps, slots=1, temperature=0.8)
+    assert hot != batched
+
+
+def test_eos_retires_and_frees_pages():
+    ps = prompts(built("int8")[0], (5, 7))
+    full = _port_serve("int8", ps)
+    eos = full[0][2]
+    cut = _port_serve("int8", ps, eos=eos)
+    assert cut[0] == full[0][:full[0].index(eos) + 1]
+
+
+def test_cli_refuses_unported_features_and_missing_card():
+    for flag in (["--prefix-share"], ["--preempt"], ["--chunk-tokens", "8"],
+                 ["--spec-draft", "planes:1"], ["--mesh", "1,2"],
+                 ["--contiguous"], ["--dispatch-ahead"], ["--policy", "w-ternary"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            tserve.main(["--reduced", "--device", "cpu", *flag])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tserve.main(["--reduced"])
+    srv = tserve.main(["--reduced", "--device", "cpu", "--requests", "2",
+                       "--max-new", "3", "--policy", "ternary"])
+    assert sorted(len(r.out) for r in srv.completed) == [3, 3]
+    assert (srv.pt.table == NULL_PAGE).all()
