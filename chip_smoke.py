@@ -10,19 +10,33 @@ Phases:
                (one nvcc per source, in parallel) for sm_90a
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, at the serve path's full llama3.2-3b shapes: the packed
-               GEMM (int32 accumulator and bf16 requant output bit-equal),
-               paged decode (bf16 and int8 pools, within 2e-2); with kernel,
+               GEMM under each of its seven MAC bodies at M = 4, 32 and 256
+               (int32 accumulator and bf16 requant output bit-equal, bias
+               on and off; the mxu bodies' accumulators equal the popcount
+               bodies'), paged decode (bf16 and int8 pools, within 2e-2),
+               flash attention (T = 256, bf16, within 3e-2); with kernel,
                plain and library times and the bound of each
   4. serve   — full-width, 28-layer llama3.2-3b from the port's seeded init,
-               8 requests through the paged continuous-batching server under
-               each of the binary, ternary and int8 policies, with every
-               kernel's launch count; a 4-slot server's tokens must equal a
-               1-slot server's; then one profiled 4-slot decode tick per
-               policy (wall time, device busy time, top kernels)
+               8 requests through the paged continuous-batching server:
+               binary, ternary and int8 on the serve CLI's 4..16-token
+               prompts; het, w-ternary (the arch's default) and binary and
+               ternary in both formulations (popcount, mxu) on a mix of
+               4..16- and 129..224-token prompts, whose prefill runs flash
+               attention; the other policies at 3 layers, full width, on the
+               mix (3 layers: one body layer between the first and the
+               last). Every run reads each kernel's launch count (set to 0
+               just before it) and fails if a kernel its layers resolve to
+               was not launched; a 4-slot server's tokens must equal a
+               1-slot server's, and mxu tokens the popcount tokens; then one
+               profiled 4-slot decode tick for binary, ternary, int8, het and
+               w-ternary (wall time, device busy time, top kernels)
   5. summary — one line per kernel, then one JSON line of kernel records:
                ms, plain_ms, bound_ms and library_ms are per decode tick of
-               the serve path (4 slots: 28 layers x {qkv, out, up, down} +
-               lm_head for a GEMM body, 28 launches for paged decode)
+               the serve path for a GEMM body (4 slots, the layers that run
+               it: 28 x {qkv, out, up, down} + lm_head for a whole-model body,
+               het's layers for the mixed bodies), 28 launches for paged
+               decode, and per 256-token prefill (28 layers) for flash
+               attention
 The last line is {"ok": true, "device": {...}} only when every phase passed;
 any failure exits non-zero. Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -48,25 +62,42 @@ INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 
 ARCH = "llama3.2-3b"
-POLICIES = ("binary", "ternary", "int8")
+POLICIES = ("binary", "ternary", "int8")     # the first slice's runs
+#: full-depth runs on the mixed prompts: (policy, impl)
+MIXED_RUNS = (("het", "popcount"), ("w-ternary", "popcount"),
+              ("binary", "popcount"), ("binary", "mxu"),
+              ("ternary", "popcount"), ("ternary", "mxu"))
+#: the remaining policies, at SHALLOW layers and full width: 3, so that
+#: one layer is neither first nor last and runs the policy's body cell
+SHALLOW_POLICIES = ("mixed", "wt-a8", "w4a8", "w-binary", "w-int4", "w-int8",
+                    "none")
+SHALLOW = 3
+PROFILED = ("binary", "ternary", "int8", "het", "w-ternary")
 SLOTS, CACHE_LEN, PAGE_SIZE, REQUESTS, MAX_NEW = 4, 256, 32, 8, 16
 PREFILL_BUCKET = 32          # the serve CLI's 4..16-token prompts land here
+LONG_BUCKET = 256            # the 129..224-token prompts land here
 PAGED_POS = (1, 77, 160, 255)  # 4 slots, positions spread over 1..255
 
-BODY_FOR = {"binary": "bgemm_popcount", "ternary": "tgemm_popcount",
-            "int8": "i8gemm"}
+_GEMM = "src/repro/kernels/harness.py:240 (gemm, {} body {})"
 REPLACES = {
-    "i8gemm": "src/repro/kernels/harness.py:240 (gemm, I8_DOT body i8gemm.py:18)",
-    "bgemm_popcount": "src/repro/kernels/harness.py:240 (gemm, BINARY_POPCOUNT "
-                      "body bgemm.py:29)",
-    "tgemm_popcount": "src/repro/kernels/harness.py:240 (gemm, TERNARY_POPCOUNT "
-                      "body tgemm.py:29)",
+    "i8gemm": _GEMM.format("I8_DOT", "i8gemm.py:18"),
+    "bgemm_popcount": _GEMM.format("BINARY_POPCOUNT", "bgemm.py:29"),
+    "tgemm_popcount": _GEMM.format("TERNARY_POPCOUNT", "tgemm.py:29"),
+    "bgemm_mxu": _GEMM.format("BINARY_MXU", "bgemm.py:50"),
+    "tgemm_mxu": _GEMM.format("TERNARY_MXU", "tgemm.py:56"),
+    "tgemm_wt_i8a": _GEMM.format("TERNARY_W_I8A", "tgemm.py:70"),
+    "i4gemm_w4a8": _GEMM.format("INT4_W_I8A", "i4gemm.py:25"),
     "paged_flash_decode": "src/repro/kernels/paged_attn.py:205 (paged_flash_decode)",
+    "flash_attention": "src/repro/kernels/flash_attn.py:86 (flash_attention, "
+                       "_flash_kernel :31)",
 }
-SOURCE = {"i8gemm": "src/repro_torch/kernels/csrc/gemm.cu",
-          "bgemm_popcount": "src/repro_torch/kernels/csrc/gemm.cu",
-          "tgemm_popcount": "src/repro_torch/kernels/csrc/gemm.cu",
-          "paged_flash_decode": "src/repro_torch/kernels/csrc/paged_attn.cu"}
+SOURCE = {name: "src/repro_torch/kernels/csrc/gemm.cu" for name in REPLACES}
+SOURCE["paged_flash_decode"] = "src/repro_torch/kernels/csrc/paged_attn.cu"
+SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attn.cu"
+#: mxu body -> the popcount body whose accumulator it must equal
+MXU_TWIN = {"bgemm_mxu": "bgemm_popcount", "tgemm_mxu": "tgemm_popcount"}
+#: layers of one decode tick that run each mixed body (het's assignment)
+TICK_LAYERS = {"tgemm_wt_i8a": ("out", "down"), "i4gemm_w4a8": ("up",)}
 
 
 def log(msg: str) -> None:
@@ -139,31 +170,62 @@ def gemm_shapes(cfg):
 
 
 def gemm_operands(body, m, n, k, gen):
+    """Random operands of `body` on the card: int8 codes, or int32 words with
+    every bit pattern (sign bit included), each side at its own density."""
     dev = "cuda"
-    if body.k_per_q == 1:
-        x_ops = (torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev,
-                               generator=gen),)
-        w_ops = (torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev,
-                               generator=gen),)
-    else:
-        def words(r):
-            return torch.randint(-2 ** 31, 2 ** 31 - 1, (r, k // 32),
-                                 dtype=torch.int32, device=dev, generator=gen)
-        x_ops = tuple(words(m) for _ in range(body.n_x))
-        w_ops = tuple(words(n) for _ in range(body.n_w))
+
+    def side(shape, per_unit, n_ops):
+        if per_unit == 1:
+            return tuple(torch.randint(-127, 128, shape, dtype=torch.int8,
+                                       device=dev, generator=gen)
+                         for _ in range(n_ops))
+        return tuple(torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                                   device=dev, generator=gen) for _ in range(n_ops))
+
+    x_ops = side((m, k // body.xk), body.xk, body.n_x)
+    w_ops = side((k // body.wk, n) if body.w_kmajor else (n, k // body.wk),
+                 body.wk, body.n_w)
     w_scale = torch.rand(n, device=dev, generator=gen) * 0.1 + 1e-3
     a_scale = torch.rand(m, device=dev, generator=gen) + 0.1
     bias = torch.randn(n, device=dev, generator=gen)
     return x_ops, w_ops, w_scale, a_scale, bias
 
 
-def check_gemm(body, cfg, flush, gen) -> dict:
-    """Kernel vs plain at every serve GEMM shape, M = SLOTS (decode) and
-    M = PREFILL_BUCKET (prefill); returns the per-decode-tick record."""
+def unpacked_i8(body, x_ops, w_ops, k):
+    """The int8 operands a library int8 GEMM would take for the same dot:
+    (M, K) activation codes and K-major (K, N) weight codes."""
+    from repro_torch.core import pack
+    x, w = x_ops, w_ops
+    if body.xk == 1:
+        xi = x[0]
+    elif body.n_x == 2:
+        xi = pack.unpack_ternary_i8(x[0], x[1], k)
+    else:
+        xi = pack.unpack_pm1_i8(x[0], k)
+    if body.w_kmajor:
+        wi = w[0]
+    elif body.wk == pack.NIBBLES:
+        wi = pack.unpack_int4_i8(w[0], k).T.contiguous()
+    elif body.n_w == 2:
+        wi = pack.unpack_ternary_i8(w[0], w[1], k).T.contiguous()
+    else:
+        wi = pack.unpack_pm1_i8(w[0], k).T.contiguous()
+    return xi.contiguous(), wi
+
+
+def check_gemm(body, cfg, flush, gen, accs) -> dict:
+    """Kernel vs plain at every serve GEMM shape, at M = SLOTS (decode) and
+    at both prefill buckets; returns the per-decode-tick record. `accs`
+    collects each shape's int32 accumulator, so that an mxu body can be
+    held against its popcount twin on the same operands (same seed)."""
     from repro_torch.kernels import harness
-    tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-    for m in (SLOTS, PREFILL_BUCKET):
-        for name, n, k, per_tick in gemm_shapes(cfg):
+    tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0, "lib": 0.0}
+    layers = TICK_LAYERS.get(body.name)
+    for m in (SLOTS, PREFILL_BUCKET, LONG_BUCKET):
+        for si, (name, n, k, per_tick) in enumerate(gemm_shapes(cfg)):
+            if layers is not None and name not in layers:
+                continue
+            gen.manual_seed(1000 * m + si)   # an mxu body meets its twin's operands
             x_ops, w_ops, ws, as_, bias = gemm_operands(body, m, n, k, gen)
             for out, b in (("acc", None), ("requant", None), ("requant", bias)):
                 sc = (None, None) if out == "acc" else (ws, as_)
@@ -174,6 +236,11 @@ def check_gemm(body, cfg, flush, gen) -> dict:
                     same = torch.equal(got.view(torch.int16), want.view(torch.int16))
                 else:
                     same = torch.equal(got, want)
+                    twin = accs.get((MXU_TWIN.get(body.name), m, name))
+                    if twin is not None and not torch.equal(got, twin):
+                        raise AssertionError(f"{body.name} {name} M={m}: mxu "
+                                             f"accumulator != popcount accumulator")
+                    accs[(body.name, m, name)] = got
                 if not same:
                     err = (got.float() - want.float()).abs().max().item()
                     raise AssertionError(f"{body.name} {name} M={m} out={out} "
@@ -194,8 +261,10 @@ def check_gemm(body, cfg, flush, gen) -> dict:
             ops = 2.0 * m * n * k
             bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
             lib = None
-            if body.k_per_q == 1 and m > 16:
-                lib = time_ms(lambda: torch._int_mm(x_ops[0], w_ops[0]), 20, flush)
+            if m > 16 and body.name not in ("bgemm_popcount", "tgemm_popcount"):
+                xi, wi = unpacked_i8(body, x_ops, w_ops, k)
+                lib = time_ms(lambda: torch._int_mm(xi, wi), 20, flush)
+                del xi, wi
             log(f"[kernels] {body.name:15s} {name:8s} M={m:3d} N={n:6d} K={k:5d} "
                 f"bit-equal ok  kernel {ms:.4f} ms  plain {pms:.3f} ms  "
                 f"bound {bound:.4f} ms ({'bytes' if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S else 'operations'})"
@@ -287,14 +356,57 @@ def check_paged(cfg, flush, gen) -> dict:
     return rec
 
 
+def check_flash(cfg, flush, gen) -> dict:
+    """Kernel vs plain for one layer's 256-token prefill attention (B = 1,
+    24/8 heads, dh = 128, bf16, causal), with q/k/v the (B, T, H, dh) views
+    the model passes; returns the per-prefill record (28 layers)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn
+    b, t, h, hk, dh = 1, LONG_BUCKET, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn((b, t, n, dh), device="cuda", generator=gen
+                           ).to(torch.bfloat16).transpose(1, 2) for n in (h, hk, hk))
+    got = flash_attn.flash_attention(q, k, v)
+    want = flash_attn.flash_attention_plain(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 3e-2                       # tests/test_flash_attn.py's bf16 bar
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"flash attention: max abs err {err} outside "
+                             f"rtol=atol={tol}")
+    ms = time_ms(lambda: flash_attn.flash_attention(q, k, v), 50, flush)
+    pms = time_ms(lambda: flash_attn.flash_attention_plain(q, k, v), 5)
+    # the causal half of the two products is what this run's data needs
+    pairs = t * (t + 1) / 2
+    ops = 4.0 * h * pairs * dh
+    nbytes = 2 * (2 * b * t * h * dh + 2 * b * t * hk * dh)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
+    g = h // hk
+    kr, vr = (a.repeat_interleave(g, dim=1).contiguous() for a in (k, v))
+    qc = q.contiguous()
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qc, kr, vr, is_causal=True),
+                  50, flush)
+    log(f"[kernels] flash_attention bf16 B={b} T={t} Hq={h} Hk={hk} dh={dh} causal: "
+        f"max abs err {err:.3e} (rtol=atol={tol})  kernel {ms:.4f} ms  plain "
+        f"{pms:.3f} ms  bound {max(t_bytes, t_ops) * 1e3:.5f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'})  sdpa (is_causal, "
+        f"K/V repeated to {h} heads) {lib:.4f} ms")
+    n = cfg.n_layers
+    return {"name": "flash_attention", "max_abs_err": err, "ms": n * ms,
+            "plain_ms": n * pms, "bound_ms": n * max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": n * lib}
+
+
 def phase_kernels(cfg, recs: list) -> None:
     """Appends each kernel's record to `recs` as its check passes."""
-    from repro_torch.kernels import bgemm, i8gemm, tgemm
+    from repro_torch.kernels import BODIES
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.ones(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    for body in (i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT):
-        recs.append(check_gemm(body, cfg, flush, gen))
+    accs = {}
+    for body in BODIES:              # popcount bodies before their mxu twins
+        recs.append(check_gemm(body, cfg, flush, gen, accs))
     recs.append(check_paged(cfg, flush, gen))
+    recs.append(check_flash(cfg, flush, gen))
+    log("[kernels] mxu accumulators == popcount accumulators at every shape")
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -306,11 +418,21 @@ def prompts(cfg):
             for _ in range(REQUESTS)]
 
 
-def serve(cfg, sparams, slots):
+def mixed_prompts(cfg):
+    """Alternately a 4..16-token prompt (bucket 32) and a 129..224-token
+    prompt (bucket 256, whose prefill runs flash attention), from seed 1."""
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, cfg.vocab, size=(rng.integers(*((4, 17) if i % 2 == 0
+                                                           else (129, 225))),)
+                         ).astype(np.int32) for i in range(REQUESTS)]
+
+
+def serve(cfg, sparams, slots, reqs, impl="popcount"):
     from repro_torch.launch.serve import Request, Server
+    from repro_torch.models.common import ModelCtx
     srv = Server(cfg, sparams, slots=slots, cache_len=CACHE_LEN,
-                 page_size=PAGE_SIZE, device="cuda")
-    for i, p in enumerate(prompts(cfg)):
+                 page_size=PAGE_SIZE, ctx=ModelCtx(impl=impl), device="cuda")
+    for i, p in enumerate(reqs):
         srv.submit(Request(i, p, MAX_NEW, seed=i))
     t0 = time.perf_counter()
     ticks = srv.run()
@@ -319,10 +441,70 @@ def serve(cfg, sparams, slots):
     return srv, ticks, dt
 
 
-def phase_serve(cfg0, device_name) -> dict:
+def expected_kernels(cfg, impl, reqs) -> set:
+    """The kernels a serve run must launch: the GEMM body of every layer
+    that has one, paged decode, and flash attention when a prompt lands in
+    a bucket that is a multiple of 256."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx, operating_point
+    sp = transformer.build_specs(cfg)
+    specs = [sp.lm_head] + [s for b in sp.blocks for s in
+                            (b.mixer.qkv, b.mixer.out, b.ffn.up, b.ffn.down)]
+    want = {"paged_flash_decode"}
+    for spec in specs:
+        body = dispatch.lookup(operating_point(spec, ModelCtx(impl=impl))).body
+        if body is not None:
+            want.add(body.name)
+    if any(len(p) > CACHE_LEN // 2 for p in reqs):
+        want.add("flash_attention")
+    return want
+
+
+def served(label, cfg, sparams, impl, reqs, device_name, total) -> dict:
+    """One 4-slot serve run with the launch counts set to 0 just before it
+    and read just after, added to `total`; returns the tokens by request."""
     import repro_torch.kernels as K
     from repro_torch.launch.serve import tree_nbytes
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    srv, ticks, dt = serve(cfg, sparams, SLOTS, reqs, impl)
+    runs = K.launch_counts()
+    for name, n in runs.items():
+        total[name] = total.get(name, 0) + n
+    toks = sum(len(r.out) for r in srv.completed)
+    out = {r.rid: r.out for r in srv.completed}
+    log(f"[serve] {label}: packed {tree_nbytes(sparams) / 2 ** 20:.1f} MiB; "
+        f"{len(srv.completed)} requests, {toks} tokens, {ticks} ticks, {dt:.3f} s, "
+        f"{toks / dt:.1f} tok/s on {device_name}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{ {k: v for k, v in runs.items() if v} }")
+    if len(srv.completed) != len(reqs) or toks != len(reqs) * MAX_NEW:
+        raise AssertionError(f"{label}: served {len(srv.completed)} requests, "
+                             f"{toks} tokens")
+    if not all(0 <= t < cfg.vocab for o in out.values() for t in o):
+        raise AssertionError(f"{label}: token ids out of range")
+    missing = sorted(n for n in expected_kernels(cfg, impl, reqs) if runs[n] == 0)
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} never launched")
+    return out
+
+
+def same_as_one_slot(label, cfg, sparams, impl, reqs, want) -> None:
+    srv, ticks, dt = serve(cfg, sparams, 1, reqs, impl)
+    seq = {r.rid: r.out for r in srv.completed}
+    if seq != want:
+        bad = [i for i in seq if seq[i] != want.get(i)]
+        raise AssertionError(f"{label}: {SLOTS}-slot tokens != 1-slot tokens "
+                             f"for requests {bad}")
+    log(f"[serve] {label}: {SLOTS}-slot tokens == 1-slot tokens "
+        f"({ticks} sequential ticks, {dt:.3f} s)")
+
+
+def phase_serve(cfg0, device_name) -> dict:
+    import repro_torch.kernels as K
     from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     train = transformer.init(cfg0, gen, "cuda")
@@ -330,46 +512,46 @@ def phase_serve(cfg0, device_name) -> dict:
     log(f"[serve] {ARCH}: {cfg0.n_layers} layers, d_model {cfg0.d_model}, "
         f"{cfg0.n_heads}/{cfg0.n_kv_heads} heads, d_ff {cfg0.d_ff}, vocab "
         f"{cfg0.vocab}; seeded init in {time.perf_counter() - t0:.1f}s")
-    packed = {}
-    for policy in POLICIES:
-        cfg = dataclasses.replace(cfg0, policy=policy)
-        packed[policy] = transformer.pack_for_serve(train, cfg)
+    cfgs = {pol: dataclasses.replace(cfg0, policy=pol)
+            for pol in POLICIES + tuple(p for p, _ in MIXED_RUNS)}
+    packed = {pol: transformer.pack_for_serve(train, cfg) for pol, cfg in cfgs.items()}
     del train
     torch.cuda.empty_cache()
 
-    outs = {}
-    K.reset_launches()                    # the main path's run starts here
+    total = {}          # launches summed over the 4-slot runs of the path
+    short, mixed = prompts(cfg0), mixed_prompts(cfg0)
     for policy in POLICIES:
-        cfg = dataclasses.replace(cfg0, policy=policy)
-        sp = packed[policy]
-        mib = tree_nbytes(sp) / 2 ** 20
-        before = K.launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        srv, ticks, dt = serve(cfg, sp, SLOTS)
-        after = K.launch_counts()
-        runs = {k: after[k] - before[k] for k in after}
-        toks = sum(len(r.out) for r in srv.completed)
-        outs[policy] = {r.rid: r.out for r in srv.completed}
-        log(f"[serve] policy={policy}: packed {mib:.1f} MiB; {len(srv.completed)} "
-            f"requests, {toks} tokens, {ticks} ticks, {dt:.3f} s, "
-            f"{toks / dt:.1f} tok/s on {device_name}; max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {runs}")
-        if len(srv.completed) != REQUESTS or toks != REQUESTS * MAX_NEW:
-            raise AssertionError(f"{policy}: served {len(srv.completed)} requests, "
-                                 f"{toks} tokens")
-        if not all(0 <= t < cfg.vocab for o in outs[policy].values() for t in o):
-            raise AssertionError(f"{policy}: token ids out of range")
-        for name in (BODY_FOR[policy], "paged_flash_decode"):
-            if runs[name] == 0:
-                raise AssertionError(f"{policy}: kernel {name} never launched")
-    launches = K.launch_counts()          # ... and ends here
-    for name, n in launches.items():
+        label = f"policy={policy}"
+        out = served(label, cfgs[policy], packed[policy], "popcount", short,
+                     device_name, total)
+        same_as_one_slot(label, cfgs[policy], packed[policy], "popcount", short, out)
+    outs = {}
+    for policy, impl in MIXED_RUNS:
+        label = f"policy={policy} impl={impl} (mixed prompts)"
+        outs[policy, impl] = out = served(label, cfgs[policy], packed[policy], impl,
+                                          mixed, device_name, total)
+        if impl == "mxu":
+            if out != outs[policy, "popcount"]:
+                raise AssertionError(f"{label}: mxu tokens != popcount tokens")
+            log(f"[serve] {label}: mxu tokens == popcount tokens")
+        same_as_one_slot(label, cfgs[policy], packed[policy], impl, mixed, out)
+
+    shallow = dataclasses.replace(cfg0, n_layers=SHALLOW)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    train = transformer.init(shallow, gen, "cuda")
+    for policy in SHALLOW_POLICIES:
+        cfg = dataclasses.replace(shallow, policy=policy)
+        sp = transformer.pack_for_serve(train, cfg)
+        label = f"policy={policy} ({SHALLOW} layers, mixed prompts)"
+        out = served(label, cfg, sp, "popcount", mixed, device_name, total)
+        same_as_one_slot(label, cfg, sp, "popcount", mixed, out)
+    del train
+    for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} never launched on the serve path")
 
-    from repro_torch.models.common import ModelCtx
     for policy in POLICIES:
-        cfg = dataclasses.replace(cfg0, policy=policy)
+        cfg = cfgs[policy]
         sp = transformer.build_specs(cfg)
         toks = torch.from_numpy(prompts(cfg)[0]).to("cuda")[None]
         logits, _ = transformer.prefill(packed[policy], toks, sp, ModelCtx())
@@ -377,21 +559,9 @@ def phase_serve(cfg0, device_name) -> dict:
             raise AssertionError(f"{policy}: prefill logits {tuple(logits.shape)}, "
                                  f"finite={bool(torch.isfinite(logits).all())}")
     log(f"[serve] prefill logits finite, shape (1, 1, {cfg0.vocab}), every policy")
-
-    for policy in POLICIES:
-        cfg = dataclasses.replace(cfg0, policy=policy)
-        srv, ticks, dt = serve(cfg, packed[policy], 1)
-        seq = {r.rid: r.out for r in srv.completed}
-        if seq != outs[policy]:
-            bad = [i for i in seq if seq[i] != outs[policy].get(i)]
-            raise AssertionError(f"{policy}: {SLOTS}-slot tokens != 1-slot tokens "
-                                 f"for requests {bad}")
-        log(f"[serve] policy={policy}: {SLOTS}-slot tokens == 1-slot tokens "
-            f"({ticks} sequential ticks, {dt:.3f} s)")
-    for policy in POLICIES:
-        profile_tick(dataclasses.replace(cfg0, policy=policy), packed[policy],
-                     device_name)
-    return launches
+    for policy in PROFILED:
+        profile_tick(cfgs[policy], packed[policy], device_name)
+    return total
 
 
 def profile_tick(cfg, sparams, device_name) -> None:

@@ -7,19 +7,21 @@ JAX package's:
 
   binary : K/32 words, bit = 1 encodes +1
   ternary: two planes (mask, sign) of K/32 words each
+  int4   : K/8 words, nibble j of word i = s4 code 8*i+j (two's complement)
   int8   : native int8 codes (no packing)
 
 torch has limited uint32 support (no `>>` for uint32 on the CPU), so the
 port stores every packed word as **int32 with its bits unchanged**. int32
 `>>` is arithmetic, so every shift below is followed by a mask, and the
 popcount of the plain versions is a SWAR count in int64. Packing always
-happens along the LAST axis; K must be a multiple of 32.
+happens along the LAST axis; K must be a multiple of 32 (of 8 for int4).
 """
 from __future__ import annotations
 
 import torch
 
 WORD = 32  # bits per packed word
+NIBBLES = 8  # s4 codes per packed word
 
 
 def _check_k(k: int) -> None:
@@ -85,6 +87,28 @@ def unpack_ternary_i8(mask_words: torch.Tensor, sign_words: torch.Tensor,
     mask = unpack_bits(mask_words, k).to(torch.int8)
     sign = unpack_bits(sign_words, k).to(torch.int8)
     return mask * (1 - 2 * sign)
+
+
+# -- int4 (s4 nibble codes, 8 per word) --------------------------------------
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Pack s4 codes in [-8, 7] (last axis = K) into int32 words: nibble j
+    of word i holds code[..., 8*i+j] in two's complement, little-endian."""
+    k = codes.shape[-1]
+    if k % NIBBLES:
+        raise ValueError(f"int4 packing axis length {k} not a multiple of {NIBBLES}")
+    c = (codes.to(torch.int64) & 0xF).reshape(*codes.shape[:-1], k // NIBBLES, NIBBLES)
+    shifts = torch.arange(0, 4 * NIBBLES, 4, dtype=torch.int64, device=codes.device)
+    return _to_i32_bits((c << shifts).sum(dim=-1))
+
+
+def unpack_int4_i8(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Unpack s4 nibble words to int8 codes along a last axis of length k;
+    a nibble >= 8 is negative (nibble - 16)."""
+    shifts = torch.arange(0, 4 * NIBBLES, 4, dtype=torch.int32, device=words.device)
+    nib = (words.to(torch.int32).unsqueeze(-1) >> shifts) & 0xF   # mask after >>
+    nib = nib.reshape(*words.shape[:-1], words.shape[-1] * NIBBLES)[..., :k]
+    return torch.where(nib >= 8, nib - 16, nib).to(torch.int8)
 
 
 # -- packed dot products (the XNOR/gated-XNOR algebra, §II-A) ----------------

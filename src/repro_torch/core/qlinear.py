@@ -1,8 +1,8 @@
 """QuantizedLinear, serve half — counterpart of `repro.core.qlinear`.
 
 `init` draws the train-layout weight w[in, out] ~ normal / sqrt(in_dim) like
-the reference; `pack_params` converts it to the packed serve layout of the
-binary, ternary and int8 operating points; `apply(mode="serve")` runs the
+the reference; `pack_params` converts it to the packed serve layout of every
+weight precision (binary, ternary, int4, int8, none); `apply(mode="serve")` runs the
 layer through `kernels.dispatch.qgemm`. Packed words are int32 with the
 bits of the reference's uint32 words (see `core.pack`).
 """
@@ -14,7 +14,7 @@ import torch
 
 from . import pack
 from .precision import LayerQuant
-from .quantize import int8_codes, int8_scale, ternarize
+from .quantize import int4_codes, int4_scale, int8_codes, int8_scale, ternarize
 
 Params = dict[str, torch.Tensor]
 
@@ -47,11 +47,14 @@ def pack_params(p: Params, spec: QLinearSpec) -> Params:
              w_scale   f32[out]            (XNOR-Net per-channel alpha)
     ternary: w_mask/w_sign int32[out, in/32]
              w_scale   f32[out]
+    int4   : w_q4      int32[out, in/8]    (s4 nibble codes)
+             w_scale   f32[out]
     int8   : w_q       int8[in, out]       (K-major)
              w_scale   f32[out]
+    none   : w         bf16[in, out]       (dense weights, cast)
     `a_scale` (f32 scalar) is the calibrated activation scale for int8 acts.
-    The reference's stacked bit-plane twin (`w_planes`) feeds cells that are
-    not ported yet and is not produced.
+    The reference's stacked bit-plane twin (`w_planes`) feeds the plane
+    cells (`impl="planes"`), which are not ported yet, and is not produced.
     """
     w = p["w"].to(torch.float32)
     prec = spec.lq.weights.precision
@@ -65,14 +68,16 @@ def pack_params(p: Params, spec: QLinearSpec) -> Params:
         out["w_mask"], out["w_sign"] = pack.pack_ternary(q)
         nz = torch.abs(q).sum(dim=-1) + 1e-6
         out["w_scale"] = (torch.abs(wt) * torch.abs(q)).sum(dim=-1) / nz
+    elif prec == "int4":
+        s = int4_scale(wt, axis=-1)                # per out-channel, reduce in
+        out["w_q4"] = pack.pack_int4(int4_codes(wt, s))
+        out["w_scale"] = s.squeeze(-1)
     elif prec == "int8":
         s = int8_scale(w, axis=(w.ndim - 2,))      # reduce in_dim
         out["w_q"] = int8_codes(w, s)
         out["w_scale"] = s.squeeze(w.ndim - 2)
     else:
-        raise NotImplementedError(
-            f"weight precision {prec!r} is not yet ported (binary, ternary "
-            f"and int8 are)")
+        out["w"] = w.to(torch.bfloat16)
     if spec.lq.acts.precision == "int8":
         out["a_scale"] = torch.tensor(0.05, dtype=torch.float32, device=w.device)
     if "b" in p:

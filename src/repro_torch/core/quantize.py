@@ -1,6 +1,7 @@
 """Quantizers for BrainTTA's operand precisions — the serve half of
-`repro.core.quantize` (integer codes and the per-row ternary cut; the
-straight-through estimators of the training path are not ported yet).
+`repro.core.quantize` (int8 and s4 integer codes and the per-row ternary
+cut; the straight-through estimators of the training path are not ported
+yet).
 
 Rounding is `torch.round`, half-to-even like `jnp.round`, and every scale
 is applied as a division `x / scale`, as in the reference, so the codes are
@@ -62,6 +63,19 @@ def int8_scale(x: torch.Tensor, axis=None) -> torch.Tensor:
 def int8_codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Integer int8 codes for the serve path: clip(round(x / s), ±127)."""
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def int4_scale(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """Symmetric per-channel scale: max|x| / 7 (axis=None => per-tensor).
+    The ±7 range keeps the s4 codec sign-symmetric like int8."""
+    a = torch.abs(x)
+    amax = a.amax() if axis is None else a.amax(dim=axis, keepdim=True)
+    return amax / 7.0 + 1e-12
+
+
+def int4_codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """s4 codes clip(round(x / s), ±7), held in int8 until `pack.pack_int4`."""
+    return torch.clamp(torch.round(x / scale), -7, 7).to(torch.int8)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,23 +4,31 @@ counterpart of `repro.kernels`.
 harness    — the output-stationary packed GEMM template (csrc/gemm.cu) and
              its fused requant epilogue
 i8gemm     — int8 x int8 body (__dp4a)
-bgemm      — binary XNOR+popcount body
-tgemm      — ternary gated-XNOR body
+bgemm      — binary bodies: XNOR+popcount, and ±1 unpack + __dp4a (mxu)
+tgemm      — ternary bodies: gated XNOR, trit unpack + __dp4a (mxu), and
+             trit weights x int8 activations
+i4gemm     — s4 nibble weights x int8 activations
 paged_attn — paged flash-decode (csrc/paged_attn.cu)
+flash_attn — causal GQA prefill attention (csrc/flash_attn.cu)
 dispatch   — OperatingPoint-keyed registry + `qgemm`, the serve entry point
 build      — nvcc build at first use, ctypes binding, launch counts
 
 Importing builds nothing: a kernel is compiled at its first launch (or by
 `build.build_all()`).
 """
-from . import bgemm, dispatch, harness, i8gemm, paged_attn, tgemm  # noqa: F401
+from . import (bgemm, dispatch, flash_attn, harness, i4gemm, i8gemm,  # noqa: F401
+               paged_attn, tgemm)
+
+#: every GEMM body on the serve path
+BODIES = (i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT,
+          bgemm.BINARY_MXU, tgemm.TERNARY_MXU, tgemm.TERNARY_W_I8A,
+          i4gemm.INT4_W_I8A)
 
 #: every kernel launcher on the serve path, by name
 KERNELS = {
-    i8gemm.I8_DOT.name: i8gemm.I8_DOT.kernel,
-    bgemm.BINARY_POPCOUNT.name: bgemm.BINARY_POPCOUNT.kernel,
-    tgemm.TERNARY_POPCOUNT.name: tgemm.TERNARY_POPCOUNT.kernel,
+    **{body.name: body.kernel for body in BODIES},
     "paged_flash_decode": paged_attn.PAGED_DECODE,
+    "flash_attention": flash_attn.FLASH_ATTN,
 }
 
 

@@ -1,9 +1,15 @@
-"""Binary XNOR+popcount MAC body — the vBMAC unit (counterpart of
-`repro.kernels.bgemm`, BINARY_POPCOUNT).
+"""Binary MAC bodies — the vBMAC unit (counterpart of `repro.kernels.bgemm`).
 
-Operands are bit-packed along K (32 per int32 word). The CUDA body
-(`csrc/gemm.cu`, BODY_BINARY) sums `__popc(x ^ w)` mismatches; the dot is
-K - 2*mismatches. The plain version is `core.pack.binary_dot_words`.
+Operands are bit-packed along K (32 per int32 word, bit = 1 encodes +1).
+Two formulations of the same integer dot:
+
+  BINARY_POPCOUNT — the CUDA body (`csrc/gemm.cu`, BODY_BINARY) sums
+                    `__popc(x ^ w)` mismatches; the dot is K - 2*mismatches.
+                    The plain version is `core.pack.binary_dot_words`.
+  BINARY_MXU      — both sides unpacked to ±1 int8 and dotted (the
+                    reference's MXU body; on the card BODY_BINARY_MXU
+                    unpacks in shared memory and runs __dp4a). The dot is
+                    integer-exact, so it equals BINARY_POPCOUNT's.
 """
 from __future__ import annotations
 
@@ -24,6 +30,16 @@ def chunked_over_n(fn, m: int, n: int, device) -> torch.Tensor:
                       for n0 in range(0, n, N_CHUNK)], dim=1)
 
 
+def unpacked_dot(x: torch.Tensor, unpack_w, n: int) -> torch.Tensor:
+    """(M, K) int8 codes x the (n1-n0, K) int8 weight rows `unpack_w(n0,
+    n1)` yields -> (M, N) int32, N_CHUNK rows unpacked at a time. Exact: in
+    float64 every product and partial sum is an integer below 2^53."""
+    xd = x.to(torch.float64)
+    return chunked_over_n(
+        lambda a, b: (xd @ unpack_w(a, b).to(torch.float64).T).to(torch.int32),
+        x.shape[0], n, x.device)
+
+
 def binary_popcount_plain(x_ops, w_ops, k: int) -> torch.Tensor:
     x, w = x_ops[0], w_ops[0]
     return chunked_over_n(
@@ -34,3 +50,13 @@ def binary_popcount_plain(x_ops, w_ops, k: int) -> torch.Tensor:
 BINARY_POPCOUNT = MacBody("bgemm_popcount", body_id=1, n_x=1, n_w=1,
                           k_per_q=pack.WORD, plain=binary_popcount_plain,
                           kernel=gemm_kernel())
+
+
+def binary_mxu_plain(x_ops, w_ops, k: int) -> torch.Tensor:
+    w = w_ops[0]
+    return unpacked_dot(pack.unpack_pm1_i8(x_ops[0], k),
+                        lambda a, b: pack.unpack_pm1_i8(w[a:b], k), w.shape[0])
+
+
+BINARY_MXU = MacBody("bgemm_mxu", body_id=3, n_x=1, n_w=1, k_per_q=pack.WORD,
+                     plain=binary_mxu_plain, kernel=gemm_kernel())

@@ -8,14 +8,23 @@ Every serve GEMM funnels through
 where `op` is an `OperatingPoint` (weight precision, activation precision,
 kernel formulation). The registry maps an operating point to a `GemmCell`:
 its activation prep (quantize + pack, torch ops, as the reference keeps it
-outside the kernel) and its `MacBody`, which `harness.gemm` runs as the CUDA
-kernel for CUDA tensors and as the body's plain version for CPU tensors.
+outside the kernel) and either
 
-Ported cells: binary/binary/popcount, ternary/ternary/popcount and
-int8/int8/*. The other cells of the reference (mxu, mixed w/a, int4,
-planes, weight-only, dense) are not yet ported, nor are tensor and expert
-parallelism; asking for one raises. There is no tune table: the CUDA tile
-is compile-time (`harness.Tile`), and the reference's `tune_cpu.json` holds
+  * a `MacBody` (the weight-and-activation cells), which `harness.gemm`
+    runs as the CUDA kernel for CUDA tensors and as the body's plain
+    version for CPU tensors, with the fused f32 requant (`wide=True`); or
+  * a torch accumulator (`acc`, the weight-only and dense cells, whose
+    activations stay bf16): the reference has no Pallas body for these
+    (its `_acc_wonly_*` run through XLA), so the port runs them as torch
+    ops — unpack the packed weights, one `torch.matmul` — with the narrow
+    epilogue of `_requant_narrow` (`wide=False`).
+
+All single-device cells of the reference are registered: binary and
+ternary (popcount and mxu), int8, the mixed w-ternary/w-int4 x a-int8
+cells, and the weight-only and dense cells. Not ported: the plane-composed
+cells (`impl="planes"`; asking for one raises rather than falling back),
+tensor and expert parallelism. There is no tune table: the CUDA tile is
+compile-time (`harness.Tile`), and the reference's `tune_cpu.json` holds
 interpret-mode CPU picks that say nothing about the card.
 """
 from __future__ import annotations
@@ -28,15 +37,15 @@ import torch
 from repro_torch.core import pack
 from repro_torch.core.quantize import int8_codes, row_mean, ternarize
 
-from . import bgemm, harness, i8gemm, tgemm
+from . import bgemm, harness, i4gemm, i8gemm, tgemm
 
 
 @dataclasses.dataclass(frozen=True)
 class OperatingPoint:
     """One configuration of the datapath: wprec/aprec name the registry
-    cell, impl the kernel formulation ("popcount", or "*" when the cell is
-    formulation-agnostic). Where the cell runs follows from the device of
-    its tensors."""
+    cell, impl the kernel formulation ("popcount" | "mxu", or "*" when the
+    cell is formulation-agnostic). Where the cell runs follows from the
+    device of its tensors."""
     wprec: str = "none"
     aprec: str = "none"
     impl: str = "popcount"
@@ -50,10 +59,10 @@ class OperatingPoint:
         return f"w{self.wprec[:4]}/a{self.aprec[:4]}/{self.impl}"
 
     @classmethod
-    def for_spec(cls, spec) -> "OperatingPoint":
+    def for_spec(cls, spec, *, impl: str = "popcount") -> "OperatingPoint":
         """The per-layer operating point: precisions from the layer's
-        `LayerQuant`, the popcount formulation (the only one ported)."""
-        return cls(spec.lq.weights.precision, spec.lq.acts.precision)
+        `LayerQuant`, the formulation from the execution context."""
+        return cls(spec.lq.weights.precision, spec.lq.acts.precision, impl)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +70,10 @@ class GemmCell:
     """One registered operating point of the datapath."""
     op: OperatingPoint
     weight_names: tuple[str, ...]   # packed-param entries feeding the GEMM
-    prep: Callable                  # (x2d, p, spec) -> (x_ops, a_scale)
-    body: harness.MacBody
+    prep: Callable                  # (x2d, p, spec) -> (x_ops, a_scale|None)
+    body: harness.MacBody | None = None  # CUDA kernel body (None: torch acc)
+    acc: Callable | None = None     # (x_ops, w_ops, k) -> (M, N) f32 (no body)
+    wide: bool = True               # f32 requant (W&A) vs narrow (weight-only)
 
     @property
     def key(self) -> tuple[str, str, str]:
@@ -80,7 +91,13 @@ def register(cell: GemmCell) -> GemmCell:
 
 
 def lookup(op: OperatingPoint) -> GemmCell:
-    """Resolve an operating point to its cell; impl falls back to '*'."""
+    """Resolve an operating point to its cell; impl falls back to '*'.
+    impl="planes" raises: the plane-composed cells (the reference's
+    kernels/pgemm.py) are not ported, and the '*' cell in their place would
+    hide that."""
+    if op.impl == "planes":
+        raise KeyError("impl='planes' (the plane-composed cells) is not yet "
+                       "ported to repro_torch")
     for k in (op.key, (op.wprec, op.aprec, "*")):
         if k in _REGISTRY:
             return _REGISTRY[k]
@@ -114,16 +131,108 @@ def _prep_int8(x2d, p, spec):
     return (xq,), a_s.to(torch.float32).expand(x2d.shape[0]).contiguous()
 
 
+def _prep_bf16(x2d, p, spec):
+    """Weight-only / dense: activations stay bf16."""
+    return (x2d.to(torch.bfloat16),), None
+
+
+# ---------------------------------------------------------------------------
+# torch accumulators of the weight-only and dense cells
+# ---------------------------------------------------------------------------
+
+#: weight-only products pad their rows to a multiple of this, so that the
+#: library runs one algorithm for every batch size it meets at decode (1..64
+#: slots): a row's result then cannot depend on how many rows came with it
+ROW_QUANTUM = 64
+
+
+def _matmul_nk(x: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """bf16 activations (M, K) x integer or bf16 weights (N, K) -> (M, N)
+    f32: the bf16 product with an f32 accumulator, as XLA computes the
+    reference's bf16 dot. Every operand value is exact in f32, so this is
+    that product up to the order of the f32 sum (TF32 stays off: torch's
+    default `allow_tf32 = False` for matmul)."""
+    m = x.shape[0]
+    pad = (-m) % ROW_QUANTUM
+    xf = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, pad))
+    return (xf @ w_nk.to(torch.float32).T)[:m]
+
+
+def _acc_wonly_binary(x_ops, w_ops, k):
+    return _matmul_nk(x_ops[0], pack.unpack_pm1_i8(w_ops[0], k))
+
+
+def _acc_wonly_ternary(x_ops, w_ops, k):
+    return _matmul_nk(x_ops[0], pack.unpack_ternary_i8(w_ops[0], w_ops[1], k))
+
+
+def _acc_wonly_int4(x_ops, w_ops, k):
+    return _matmul_nk(x_ops[0], pack.unpack_int4_i8(w_ops[0], k))
+
+
+def _acc_wonly_int8(x_ops, w_ops, k):
+    return _matmul_nk(x_ops[0], w_ops[0].T)          # w_q is (K, N)
+
+
+def _acc_dense(x_ops, w_ops, k):
+    return _matmul_nk(x_ops[0], w_ops[0].T)          # w is (K, N) bf16
+
+
+def _requant_narrow(acc, w_scale, bias):
+    """Weight-only epilogue, as the reference's: the accumulator rounded to
+    bf16 and scaled in bf16, the bias (if any) added in f32."""
+    y = acc.to(torch.bfloat16)
+    if w_scale is not None:
+        y = y * w_scale.to(torch.bfloat16)
+    if bias is not None:
+        y = y.to(torch.float32) + bias
+    return y
+
+
+# ---------------------------------------------------------------------------
+# the registry — every single-device operating point of the POLICIES table
+# ---------------------------------------------------------------------------
+
 def _op(wprec, aprec, impl):
     return OperatingPoint(wprec, aprec, impl)
 
 
+# W&A-quantized cells: packed operands, int32 accumulators, CUDA bodies
 register(GemmCell(_op("binary", "binary", "popcount"), ("w_packed",),
                   _prep_binary, bgemm.BINARY_POPCOUNT))
+register(GemmCell(_op("binary", "binary", "mxu"), ("w_packed",),
+                  _prep_binary, bgemm.BINARY_MXU))
 register(GemmCell(_op("ternary", "ternary", "popcount"), ("w_mask", "w_sign"),
                   _prep_ternary, tgemm.TERNARY_POPCOUNT))
+register(GemmCell(_op("ternary", "ternary", "mxu"), ("w_mask", "w_sign"),
+                  _prep_ternary, tgemm.TERNARY_MXU))
 register(GemmCell(_op("int8", "int8", "*"), ("w_q",),
                   _prep_int8, i8gemm.I8_DOT))
+
+# mixed w/a cells: packed weights against int8 activation codes; the shared
+# requant composes the per-channel weight scale with the activation scale
+register(GemmCell(_op("ternary", "int8", "*"), ("w_mask", "w_sign"),
+                  _prep_int8, tgemm.TERNARY_W_I8A))
+register(GemmCell(_op("int4", "int8", "*"), ("w_q4",),
+                  _prep_int8, i4gemm.INT4_W_I8A))
+
+# weight-only and dense cells: bf16 activations, torch ops (no kernel body
+# in the reference either), narrow epilogue
+register(GemmCell(_op("binary", "none", "*"), ("w_packed",), _prep_bf16,
+                  acc=_acc_wonly_binary, wide=False))
+register(GemmCell(_op("ternary", "none", "*"), ("w_mask", "w_sign"), _prep_bf16,
+                  acc=_acc_wonly_ternary, wide=False))
+register(GemmCell(_op("int4", "none", "*"), ("w_q4",), _prep_bf16,
+                  acc=_acc_wonly_int4, wide=False))
+register(GemmCell(_op("int8", "none", "*"), ("w_q",), _prep_bf16,
+                  acc=_acc_wonly_int8, wide=False))
+register(GemmCell(_op("none", "none", "*"), ("w",), _prep_bf16,
+                  acc=_acc_dense, wide=False))
+
+
+def cells() -> dict[tuple[str, str, str], GemmCell]:
+    """Snapshot of the registry."""
+    return dict(_REGISTRY)
 
 
 # ---------------------------------------------------------------------------
@@ -150,6 +259,10 @@ def qgemm(p: dict, x: torch.Tensor, spec,
     x2d = x.reshape(-1, k)
     x_ops, a_scale = cell.prep(x2d, p, spec)
     w_ops = tuple(p[nm] for nm in cell.weight_names)
-    y = harness.gemm(cell.body, x_ops, w_ops, p.get("w_scale"), a_scale,
-                     p.get("b"), k=k)
+    if cell.body is not None:
+        y = harness.gemm(cell.body, x_ops, w_ops, p.get("w_scale"), a_scale,
+                         p.get("b"), k=k)
+    else:
+        y = _requant_narrow(cell.acc(x_ops, w_ops, k), p.get("w_scale"),
+                            p.get("b")).to(torch.bfloat16)
     return y.reshape(*lead, n)

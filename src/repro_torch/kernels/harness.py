@@ -25,14 +25,16 @@ def gemm_kernel() -> Kernel:
     """A launcher of `repro_gemm` (csrc/gemm.cu) with its own launch count;
     each MacBody holds one, so launches are counted per body."""
     return Kernel("gemm", "repro_gemm",
-                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
 
 
 @dataclasses.dataclass(frozen=True)
 class Tile:
     """The CUDA kernel's block shape: bm x bn outputs per block, bkq 32-bit
-    words of K per shared-memory stage. Compile-time constants of
-    `csrc/gemm.cu`; `kernel_tile()` reads them from the built library."""
+    words of K per shared-memory stage (packed words for the popcount
+    bodies, words of four int8 codes for the __dp4a bodies). Compile-time
+    constants of `csrc/gemm.cu`; `kernel_tile()` reads them from the built
+    library."""
     bm: int = 16
     bn: int = 32
     bkq: int = 32
@@ -52,11 +54,15 @@ class MacBody:
     """One MAC body of the GEMM template.
 
     body_id: the BODY_* constant of csrc/gemm.cu. n_x / n_w: activation and
-    weight operand planes. k_per_q: K elements per storage unit of each
-    operand (32 for packed words, 1 for int8 codes). w_kmajor: weights are
-    (K, N) instead of (N, K/k_per_q). plain(x_ops, w_ops, k) -> (M, N)
-    int32 dot is the body's plain PyTorch version; kernel launches the
-    CUDA instantiation and counts its launches."""
+    weight operand planes. k_per_q: the K quantum, the lcm of the two
+    sides' storage densities. xk_per_q / wk_per_q: K elements per storage
+    unit of the activation / weight operand (None => k_per_q): 32 for
+    bit-plane words, 8 for s4 nibble words, 1 for int8 codes, so a mixed
+    body (int8 codes x trit planes) blocks each side by its own density.
+    w_kmajor: weights are (K, N) instead of (N, K/wk_per_q).
+    plain(x_ops, w_ops, k) -> (M, N) int32 dot is the body's plain PyTorch
+    version; kernel launches the CUDA instantiation and counts its
+    launches."""
     name: str
     body_id: int
     n_x: int
@@ -65,6 +71,16 @@ class MacBody:
     plain: Callable
     kernel: Kernel
     w_kmajor: bool = False
+    xk_per_q: int | None = None
+    wk_per_q: int | None = None
+
+    @property
+    def xk(self) -> int:
+        return self.xk_per_q or self.k_per_q
+
+    @property
+    def wk(self) -> int:
+        return self.wk_per_q or self.k_per_q
 
 
 def requant(dot, w_scale, a_scale, bias):
@@ -81,20 +97,24 @@ def requant(dot, w_scale, a_scale, bias):
     return y
 
 
+def _dtype(k_per_unit: int) -> torch.dtype:
+    """Storage dtype of an operand side: int8 codes, or int32 words."""
+    return torch.int8 if k_per_unit == 1 else torch.int32
+
+
 def _check(body: MacBody, x_ops, w_ops, k: int):
     if len(x_ops) != body.n_x or len(w_ops) != body.n_w:
         raise ValueError(f"{body.name}: want {body.n_x} activation and "
                          f"{body.n_w} weight operands")
-    if k % body.k_per_q or (body.k_per_q == 1 and k % 4):
+    if k % body.k_per_q or k % 4:
         raise ValueError(f"{body.name}: K={k} not a multiple of the storage unit")
     m = x_ops[0].shape[0]
     n = w_ops[0].shape[1] if body.w_kmajor else w_ops[0].shape[0]
-    kq = k // body.k_per_q
     for xo in x_ops:
-        if tuple(xo.shape) != (m, kq):
+        if tuple(xo.shape) != (m, k // body.xk):
             raise ValueError(f"{body.name}: activation operand {tuple(xo.shape)} "
-                             f"!= {(m, kq)}")
-    want_w = (kq, n) if body.w_kmajor else (n, kq)
+                             f"!= {(m, k // body.xk)}")
+    want_w = (k // body.wk, n) if body.w_kmajor else (n, k // body.wk)
     for wo in w_ops:
         if tuple(wo.shape) != want_w:
             raise ValueError(f"{body.name}: weight operand {tuple(wo.shape)} "
@@ -108,8 +128,8 @@ def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
          k: int, out: str = "requant") -> torch.Tensor:
     """Run `body` through the shared output-stationary GEMM.
 
-    x_ops: n_x tensors (M, K/k_per_q); w_ops: n_w tensors (N, K/k_per_q), or
-    (K, N) when body.w_kmajor; packed words are int32, int8 codes int8.
+    x_ops: n_x tensors (M, K/xk_per_q); w_ops: n_w tensors (N, K/wk_per_q),
+    or (K, N) when body.w_kmajor; packed words are int32, int8 codes int8.
     w_scale (N,) f32, a_scale (M,) f32, bias (N,) f32 or None
     -> (M, N) bf16. out="acc" returns the raw (M, N) int32 dot instead; the
     scales are then unused and may be None. Ragged M and N need no padding.
@@ -138,9 +158,10 @@ def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
     for t in scales:
         if t.dtype != torch.float32:
             raise ValueError(f"{body.name}: scales and bias must be float32")
-    want = torch.int8 if body.k_per_q == 1 else torch.int32
-    if any(t.dtype != want for t in ops):
-        raise ValueError(f"{body.name}: operands must be {want}")
+    if (any(t.dtype != _dtype(body.xk) for t in x_ops)
+            or any(t.dtype != _dtype(body.wk) for t in w_ops)):
+        raise ValueError(f"{body.name}: activation operands must be "
+                         f"{_dtype(body.xk)}, weight operands {_dtype(body.wk)}")
     if body.w_kmajor and n % 4:
         raise ValueError(f"{body.name}: K-major int8 weights need N % 4 == 0")
     y = torch.empty((m, n), dtype=torch.int32 if out == "acc" else torch.bfloat16,
@@ -154,9 +175,7 @@ def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
     x1 = x_ops[1] if body.n_x > 1 else None
     w1 = w_ops[1] if body.n_w > 1 else None
     rq = out == "requant"
-    kw = k // 4 if body.k_per_q == 1 else k // 32     # words per activation row
     body.kernel(body.body_id, ptr(x_ops[0]), ptr(x1), ptr(w_ops[0]), ptr(w1),
                 ptr(w_scale) if rq else None, ptr(a_scale) if rq else None,
-                ptr(bias) if rq else None, y.data_ptr(), int(not rq),
-                m, n, kw, k)
+                ptr(bias) if rq else None, y.data_ptr(), int(not rq), m, n, k)
     return y

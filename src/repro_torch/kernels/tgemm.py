@@ -1,12 +1,20 @@
-"""Ternary gated-XNOR MAC body — the vTMAC unit (counterpart of
-`repro.kernels.tgemm`, TERNARY_POPCOUNT).
+"""Ternary MAC bodies — the vTMAC unit (counterpart of `repro.kernels.tgemm`).
 
-Trits are two bit-planes (mask, sign) per `core.pack`. The CUDA body
-(`csrc/gemm.cu`, BODY_TERNARY) keeps two int32 accumulators:
-    active   += popc(xm & wm)
-    disagree += popc(xm & wm & (xs ^ ws))
-and the dot is active - 2*disagree. The plain version is
-`core.pack.ternary_dot_words`.
+Trits are two bit-planes (mask, sign) per `core.pack`.
+
+  TERNARY_POPCOUNT — the CUDA body (`csrc/gemm.cu`, BODY_TERNARY) keeps two
+                     int32 accumulators
+                         active   += popc(xm & wm)
+                         disagree += popc(xm & wm & (xs ^ ws))
+                     and the dot is active - 2*disagree. The plain version
+                     is `core.pack.ternary_dot_words`.
+  TERNARY_MXU      — both sides unpacked to {-1,0,+1} int8 and dotted
+                     (BODY_TERNARY_MXU: unpack in shared memory, __dp4a);
+                     integer-exact, so equal to TERNARY_POPCOUNT.
+  TERNARY_W_I8A    — mixed w-ternary x a-int8: (M, K) int8 activation codes
+                     against trit weight planes unpacked to int8
+                     (BODY_TERNARY_W_I8A). The two sides have different
+                     densities: 1 code per unit for x, 32 per word for w.
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ import torch
 
 from repro_torch.core import pack
 
-from .bgemm import chunked_over_n
+from .bgemm import chunked_over_n, unpacked_dot
 from .harness import MacBody, gemm_kernel
 
 
@@ -29,3 +37,26 @@ def ternary_popcount_plain(x_ops, w_ops, k: int) -> torch.Tensor:
 TERNARY_POPCOUNT = MacBody("tgemm_popcount", body_id=2, n_x=2, n_w=2,
                            k_per_q=pack.WORD, plain=ternary_popcount_plain,
                            kernel=gemm_kernel())
+
+
+def ternary_mxu_plain(x_ops, w_ops, k: int) -> torch.Tensor:
+    (xm, xs), (wm, ws) = x_ops, w_ops
+    return unpacked_dot(pack.unpack_ternary_i8(xm, xs, k),
+                        lambda a, b: pack.unpack_ternary_i8(wm[a:b], ws[a:b], k),
+                        wm.shape[0])
+
+
+TERNARY_MXU = MacBody("tgemm_mxu", body_id=4, n_x=2, n_w=2, k_per_q=pack.WORD,
+                      plain=ternary_mxu_plain, kernel=gemm_kernel())
+
+
+def ternary_w_i8a_plain(x_ops, w_ops, k: int) -> torch.Tensor:
+    wm, ws = w_ops
+    return unpacked_dot(x_ops[0],
+                        lambda a, b: pack.unpack_ternary_i8(wm[a:b], ws[a:b], k),
+                        wm.shape[0])
+
+
+TERNARY_W_I8A = MacBody("tgemm_wt_i8a", body_id=5, n_x=1, n_w=2,
+                        k_per_q=pack.WORD, xk_per_q=1, wk_per_q=pack.WORD,
+                        plain=ternary_w_i8a_plain, kernel=gemm_kernel())

@@ -2,8 +2,13 @@
 `Server` core): continuous batching over the packed serve parameters with
 a paged KV cache.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --policy binary
+    PYTHONPATH=src python -m repro_torch.launch.serve      # llama3.2-3b, w-ternary
+    PYTHONPATH=src python -m repro_torch.launch.serve --policy ternary --impl mxu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --policy binary
+
+Every single-device precision policy of `core.precision.POLICIES` is
+served, with the binary/ternary GEMMs in either formulation (`--impl
+popcount|mxu`); prompts of any length up to `cache_len`.
 
 What runs, as in the reference:
   * a fixed `slots` decode batch fed from a request FIFO; admission is
@@ -23,10 +28,11 @@ What runs, as in the reference:
   * retirement at max_new, at EOS, or when the cache is full, freeing the
     slot's pages
 
-Not yet ported (asking for one raises): prefix sharing and copy-on-write,
-preemption and swap, chunked prefill, speculative decoding, mesh serving,
-the contiguous-slab cache, and dispatch-ahead (the host schedules each tick
-after the previous one has landed).
+Not yet ported (asking for one raises): the plane-composed GEMM cells
+(`--impl planes`), prefix sharing and copy-on-write, preemption and swap,
+chunked prefill, speculative decoding, mesh serving, the contiguous-slab
+cache, and dispatch-ahead (the host schedules each tick after the previous
+one has landed).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.core.precision import POLICIES
 from repro_torch.launch import kv_cache
 from repro_torch.launch.kv_cache import NULL_PAGE, PageTable, pages_for
 from repro_torch.models import transformer
@@ -247,7 +254,11 @@ class Server:
 
 
 #: precision policies whose every layer resolves to a ported GEMM cell
-PORTED_POLICIES = ("binary", "ternary", "int8")
+PORTED_POLICIES = tuple(POLICIES)
+
+#: GEMM formulations (`--impl`) the port serves; the reference's "planes"
+#: (plane-composed int4/int8 cells) is not ported yet
+PORTED_IMPLS = ("popcount", "mxu")
 
 #: flags of reference features this port has not reached yet
 _NOT_PORTED = ("prefix_share", "preempt", "chunk_tokens", "spec_draft", "mesh",
@@ -263,8 +274,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=256)
     ap.add_argument("--policy", default=None,
-                    help="precision policy (default: the arch's); binary, "
-                         "ternary and int8 are ported")
+                    help="precision policy (default: the arch's); every "
+                         "policy of core.precision.POLICIES is ported")
+    ap.add_argument("--impl", default="popcount",
+                    choices=("popcount", "mxu", "planes"),
+                    help="binary/ternary GEMM formulation: popcount (XNOR / "
+                         "gated XNOR) or mxu (unpack + int8 dot); planes is "
+                         "not yet ported")
     ap.add_argument("--page-size", type=int, default=32)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pool size; < slots*cache_len/page_size oversubscribes "
@@ -292,6 +308,9 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = _parser().parse_args(argv)
     asked = [f for f in _NOT_PORTED if getattr(args, f)]
+    if args.impl not in PORTED_IMPLS:
+        raise SystemExit(f"--impl {args.impl}: not yet ported to repro_torch "
+                         f"(ported: {', '.join(PORTED_IMPLS)})")
     if asked:
         flags = ", ".join("--" + f.replace("_", "-") for f in asked)
         raise SystemExit(f"{flags}: not yet ported to repro_torch")
@@ -304,14 +323,16 @@ def main(argv=None):
     if cfg.policy not in PORTED_POLICIES:
         raise SystemExit(f"--policy {cfg.policy}: not yet ported to repro_torch "
                          f"(ported: {', '.join(PORTED_POLICIES)})")
-    ctx = ModelCtx(dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
+    ctx = ModelCtx(dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
+                   impl=args.impl)
     gen = torch.Generator(device=device).manual_seed(0)
     params = transformer.init(cfg, gen, device)
     sparams = transformer.pack_for_serve(params, cfg)
     train_b, serve_b = tree_nbytes(params), tree_nbytes(sparams)
     del params
     print(f"packed weights: {train_b / 2**20:.1f} MiB -> {serve_b / 2**20:.1f} MiB "
-          f"({train_b / serve_b:.1f}x smaller, policy={cfg.policy})")
+          f"({train_b / serve_b:.1f}x smaller, policy={cfg.policy}, "
+          f"impl={args.impl})")
     srv = Server(cfg, sparams, slots=args.slots, cache_len=args.cache_len,
                  page_size=args.page_size, num_pages=args.num_pages, ctx=ctx,
                  device=device)

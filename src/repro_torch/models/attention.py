@@ -1,6 +1,7 @@
 """GQA attention, serve path — counterpart of `repro.models.attention`:
-blockwise (flash-style) causal prefill in plain torch, and one-token decode
-over the paged KV pool through the paged flash-decode kernel.
+causal prefill (through the flash-attention kernel where the reference
+takes its Pallas kernel, else blockwise in plain torch), and one-token
+decode over the paged KV pool through the paged flash-decode kernel.
 
 Layouts follow the reference: q (B, T, H, dh), k/v (B, T, Hk, dh); query
 head h reads kv head h // G. Sliding-window (`local`) layers, the
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.precision import PrecisionPolicy
-from repro_torch.kernels import paged_attn
+from repro_torch.kernels import flash_attn, paged_attn
 
 from . import common
 from .common import ModelCtx
@@ -138,20 +139,18 @@ def attn_apply(p, x, specs: AttnSpecs, cfg: ArchConfig, ctx: ModelCtx, *,
     With return_cache, the KV cache is (B, cache_len, Hk, dh) per leaf:
     the T prompt rows, zero-padded to `cache_len` (>= T)."""
     b, t, _ = x.shape
-    if x.device.type == "cuda" and t % 256 == 0:
-        # the reference runs kernels/flash_attn.py `flash_attention` here;
-        # its CUDA port has not landed, and quietly taking the plain path
-        # on the card would hide that
-        raise NotImplementedError(
-            "prefill of a multiple of 256 tokens runs the flash_attention "
-            "kernel in the reference; flash_attention is not yet ported to "
-            "CUDA")
     y = common.linear_apply(p["qkv"], x, specs.qkv, ctx)
     q, k, v = _split_qkv(y, cfg)
     positions = torch.arange(t, device=x.device)
     q = common.rope(q, positions, cfg.rope_theta)
     k = common.rope(k, positions, cfg.rope_theta)
-    o = blockwise_attention(q, k, v, causal=True)
+    if t % 256 == 0:
+        # where the reference's TPU path runs kernels/flash_attn.py: the
+        # flash-attention kernel on the card, its plain version on the CPU
+        o = flash_attn.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2)).transpose(1, 2)
+    else:
+        o = blockwise_attention(q, k, v, causal=True)
     out = common.linear_apply(p["out"], o.reshape(b, t, -1), specs.out, ctx)
     if not return_cache:
         return out

@@ -23,10 +23,12 @@ from repro_torch.core.quantize import row_mean
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
     """Execution context threaded through every block. Of the reference's
-    fields only the compute dtype varies in the port: the serve mode and
-    the popcount formulation are the only ones ported, and where a GEMM
-    runs follows from the device of its tensors."""
+    fields the port has the compute dtype and `impl`, the binary/ternary
+    GEMM formulation ("popcount" | "mxu"; "planes" is not yet ported). Only
+    the serve mode is ported, and where a GEMM runs follows from the device
+    of its tensors."""
     dtype: torch.dtype = torch.bfloat16
+    impl: str = "popcount"
 
 
 # -- linear helper ------------------------------------------------------------
@@ -38,15 +40,15 @@ def lspec(pol: PrecisionPolicy, layer_class: str, in_dim: int, out_dim: int, *,
     return QLinearSpec(in_dim, out_dim, lq, use_bias=bias, name=name or layer_class)
 
 
-def operating_point(spec: QLinearSpec):
+def operating_point(spec: QLinearSpec, ctx: ModelCtx):
     """This layer's `dispatch.OperatingPoint`: the precisions of the layer's
-    policy assignment, with the popcount formulation."""
+    policy assignment, the formulation from the context."""
     from repro_torch.kernels.dispatch import OperatingPoint
-    return OperatingPoint.for_spec(spec)
+    return OperatingPoint.for_spec(spec, impl=ctx.impl)
 
 
 def linear_apply(p, x, spec: QLinearSpec, ctx: ModelCtx):
-    return qlinear.apply(p, x, spec, op=operating_point(spec)).to(ctx.dtype)
+    return qlinear.apply(p, x, spec, op=operating_point(spec, ctx)).to(ctx.dtype)
 
 
 # -- norms --------------------------------------------------------------------

@@ -131,7 +131,42 @@ def test_quantizers_bit_identical():
             np.asarray(jquantize.ternarize(jnp.asarray(x), 0.05, axis=axis)))
 
 
-@pytest.mark.parametrize("prec", ["binary", "ternary", "int8"])
+def test_int4_quantizers_and_packing_bit_identical():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((6, 64)).astype(np.float32)
+    x[0, :4] = [3.5, -3.5, 2.5, -0.5]       # exact halves at scale 1
+    for axis in (None, -1):
+        js = jquantize.int4_scale(jnp.asarray(x), axis=axis)
+        ts = tquantize.int4_scale(torch.from_numpy(x), axis=axis)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        jc = jquantize.int4_codes(jnp.asarray(x), js)
+        tc = tquantize.int4_codes(torch.from_numpy(x), ts)
+        assert tc.dtype == torch.int8
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(
+        tquantize.int4_codes(torch.from_numpy(x), torch.tensor(1.0)).numpy()[0, :4],
+        [4, -4, 2, 0])
+    # every s4 code, so that words with the top nibble >= 8 (sign bit) occur
+    codes = rng.integers(-8, 8, size=(5, 96)).astype(np.int8)
+    codes[:, 7] = -8                         # the top nibble of word 0: 0x8
+    j = _i32(jpack.pack_int4(jnp.asarray(codes)))
+    t = tpack.pack_int4(torch.from_numpy(codes))
+    assert t.dtype == torch.int32
+    np.testing.assert_array_equal(t.numpy(), j)
+    assert (t.numpy()[:, 0] < 0).all()
+    np.testing.assert_array_equal(tpack.unpack_int4_i8(t, 96).numpy(), codes)
+    np.testing.assert_array_equal(
+        tpack.unpack_int4_i8(t, 96).numpy(),
+        np.asarray(jpack.unpack_int4_i8(jnp.asarray(j.view(np.uint32)), 96)))
+
+
+#: policies whose body covers every weight precision, with int8 and bf16
+#: activations beside it
+PACK_POLICIES = ["binary", "ternary", "int8", "w4a8", "w-int4", "wt-a8",
+                 "w-ternary", "none"]
+
+
+@pytest.mark.parametrize("prec", PACK_POLICIES)
 @pytest.mark.parametrize("in_dim,out_dim,bias", [(128, 256, False),
                                                  (256, 96, True)])
 def test_pack_params_match(prec, in_dim, out_dim, bias):
@@ -146,12 +181,20 @@ def test_pack_params_match(prec, in_dim, out_dim, bias):
                                  use_bias=bias)
     want = jqlinear.pack_params({k: jnp.asarray(v) for k, v in p.items()}, jspec)
     got = tqlinear.pack_params({k: torch.from_numpy(v) for k, v in p.items()}, tspec)
-    want.pop("w_planes", None)              # plane-composed cells: not ported
+    # the stacked plane twin feeds only the plane-composed cells
+    # (impl="planes"), which are not ported: the port does not produce it
+    want.pop("w_planes", None)
     assert sorted(got) == sorted(want)
+    wprec = jprecision.POLICIES[prec].body.weights.precision
     for name, j in want.items():
+        if name == "w":                      # dense bf16 weights: compare bits
+            assert got[name].dtype == torch.bfloat16
+            np.testing.assert_array_equal(got[name].view(torch.int16).numpy(),
+                                          np.asarray(j).view(np.int16))
+            continue
         j, t = _i32(j), got[name].numpy()
         assert t.dtype == j.dtype and t.shape == j.shape, name
-        if name == "w_scale" and prec != "int8":
+        if name == "w_scale" and wprec in ("binary", "ternary"):
             np.testing.assert_allclose(t, j, rtol=1e-6, atol=0)
         else:
             np.testing.assert_array_equal(t, j, err_msg=name)

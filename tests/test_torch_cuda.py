@@ -6,13 +6,18 @@ imports no JAX, so it runs on a machine that has only torch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Bars: the GEMM kernel's int32 accumulator and bf16 requant output are
-bit-equal to the plain version (ragged M and N, with and without bias);
+bit-equal to the plain version for every MAC body (ragged M and N, with and
+without bias), and the mxu bodies' accumulators equal the popcount bodies';
 paged decode is within rtol=atol=2e-5 of the plain version for f32 queries
 (the bar of tests/test_paged_attn.py: the same algebra summed in another
 order) and 2e-2 for bf16 (the plain version rounds scores, probabilities
 and output to bf16, the kernel keeps f32 to the end; one bf16 step at
-|o| < 4 is 0.0156); a reduced model served through the kernels gives a
-4-slot server the tokens of a 1-slot server.
+|o| < 4 is 0.0156); flash attention is within the bars of
+tests/test_flash_attn.py (f32 2e-4, bf16 3e-2: the same algebra summed in
+another order, so bf16 outputs may differ by a rounding step); a reduced
+model served through the kernels gives a 4-slot server the tokens of a
+1-slot server under every policy, with a bf16 or an int8 KV pool, and the
+mxu formulation gives the popcount formulation's tokens.
 """
 import dataclasses
 
@@ -21,9 +26,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import bgemm, harness, i8gemm, paged_attn, tgemm
-
-BODIES = [i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT]
+from repro_torch.core.precision import POLICIES
+from repro_torch.kernels import BODIES, bgemm, flash_attn, harness, paged_attn, tgemm
 
 
 @pytest.fixture
@@ -33,16 +37,21 @@ def cuda():
     return torch.device("cuda")
 
 
+def _side(shape_units, per_unit, n_ops, gen):
+    """n_ops random operands: int8 codes, or int32 words with every bit
+    pattern (sign bit included)."""
+    if per_unit == 1:
+        return tuple(torch.randint(-127, 128, shape_units, dtype=torch.int8,
+                                   generator=gen) for _ in range(n_ops))
+    return tuple(torch.randint(-2 ** 31, 2 ** 31 - 1, shape_units,
+                               dtype=torch.int32, generator=gen)
+                 for _ in range(n_ops))
+
+
 def _operands(body, m, n, k, gen):
-    if body.k_per_q == 1:
-        x = (torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen),)
-        w = (torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen),)
-    else:
-        def words(r):
-            return torch.randint(-2 ** 31, 2 ** 31 - 1, (r, k // 32),
-                                 dtype=torch.int32, generator=gen)
-        x = tuple(words(m) for _ in range(body.n_x))
-        w = tuple(words(n) for _ in range(body.n_w))
+    x = _side((m, k // body.xk), body.xk, body.n_x, gen)
+    w_shape = (k // body.wk, n) if body.w_kmajor else (n, k // body.wk)
+    w = _side(w_shape, body.wk, body.n_w, gen)
     scales = (torch.rand(n, generator=gen) * 0.1 + 1e-3,
               torch.rand(m, generator=gen) + 0.1, torch.randn(n, generator=gen))
     return x, w, scales
@@ -64,6 +73,42 @@ def test_gemm_kernel_bit_equal_to_plain(cuda, body, m, k, n):
         want = harness.gemm(body, x, w, ws, as_, bias, k=k)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 3072, 200), (32, 8192, 96)])
+@pytest.mark.parametrize("mxu,popcount", [
+    (bgemm.BINARY_MXU, bgemm.BINARY_POPCOUNT),
+    (tgemm.TERNARY_MXU, tgemm.TERNARY_POPCOUNT)], ids=["binary", "ternary"])
+def test_mxu_kernel_equals_popcount_kernel(cuda, mxu, popcount, m, k, n):
+    gen = torch.Generator().manual_seed(k + n)
+    x, w, _ = _operands(mxu, m, n, k, gen)
+    dev = lambda ts: tuple(t.to(cuda) for t in ts)
+    a = harness.gemm(mxu, dev(x), dev(w), None, None, k=k, out="acc")
+    b = harness.gemm(popcount, dev(x), dev(w), None, None, k=k, out="acc")
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,hk,t,dh,causal", [
+    (1, 24, 8, 256, 128, True),      # the serve path's prefill (GQA g=3)
+    (2, 4, 4, 128, 64, True),        # MHA
+    (1, 4, 1, 512, 32, True),        # MQA, two 256-row plain blocks
+    (2, 6, 2, 100, 64, False),       # ragged T, no mask
+])
+def test_flash_kernel_matches_plain(cuda, dtype, tol, b, h, hk, t, dh, causal):
+    rng = np.random.default_rng(t + dh)
+    # (B, T, H, dh) activations, passed as (B, H, T, dh) views like the model
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, n, dh)).astype(np.float32)
+                                ).to(dtype).transpose(1, 2) for n in (h, hk, hk))
+    want = flash_attn.flash_attention(q, k, v, causal=causal)
+    got = flash_attn.flash_attention(*(a.to(cuda) for a in (q, k, v)), causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.transpose(1, 2).is_contiguous()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -101,24 +146,42 @@ def test_paged_kernel_matches_plain(cuda, dtype, int8, tol, hq, hk, dh):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["binary", "ternary", "int8"])
-def test_reduced_serve_batched_equals_sequential_on_card(cuda, policy):
+def _reduced_serve(cuda, policy, slots, *, impl="popcount", kv="bfloat16",
+                   lens=(3, 9, 14, 5, 30, 1), n_layers=4, cache_len=64):
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx
     cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), policy=policy,
-                              n_layers=4)
+                              n_layers=n_layers, kv_cache_dtype=kv)
     gen = torch.Generator(device=cuda).manual_seed(0)
     sp = transformer.pack_for_serve(transformer.init(cfg, gen, cuda), cfg)
     rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32)
-               for n in (3, 9, 14, 5, 30, 1)]
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
+    srv = Server(cfg, sp, slots=slots, cache_len=cache_len, page_size=8,
+                 ctx=ModelCtx(impl=impl), device=cuda)
+    for i, p in enumerate(prompts):
+        srv.submit(Request(i, p, 8, seed=i))
+    srv.run()
+    return {r.rid: r.out for r in srv.completed}
 
-    def run(slots):
-        srv = Server(cfg, sp, slots=slots, cache_len=64, page_size=8, device=cuda)
-        for i, p in enumerate(prompts):
-            srv.submit(Request(i, p, 8, seed=i))
-        srv.run()
-        return {r.rid: r.out for r in srv.completed}
 
-    assert run(4) == run(1)
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_reduced_serve_batched_equals_sequential_on_card(cuda, policy):
+    assert _reduced_serve(cuda, policy, 4) == _reduced_serve(cuda, policy, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["binary", "ternary", "mixed"])
+def test_reduced_serve_mxu_equals_popcount_on_card(cuda, policy):
+    assert (_reduced_serve(cuda, policy, 4, impl="mxu")
+            == _reduced_serve(cuda, policy, 4, impl="popcount"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["int8", "w-ternary"])
+def test_reduced_serve_int8_kv_and_long_prompt_on_card(cuda, policy):
+    """An int8 KV pool, and prompts of 129-256 tokens, whose prefill runs
+    the flash-attention kernel (bucket 256), batched == sequential."""
+    kw = dict(kv="int8", lens=(3, 200, 9, 150, 140), n_layers=2, cache_len=256)
+    assert _reduced_serve(cuda, policy, 4, **kw) == _reduced_serve(cuda, policy, 1, **kw)

@@ -2,10 +2,13 @@
 
 Weights are the JAX package's own, carried over by `repro_torch.bridge`.
 Bars: the port packs the JAX train-layout weights into the same packed
-words and codes (a 4-layer config, so the reference's scanned `mid` stack
-is unstacked by the bridge), and its bucket-padded prefill and paged decode
-logits are allclose to the JAX model's.
+words and codes under every precision policy (a 4-layer config, so the
+reference's scanned `mid` stack is unstacked by the bridge), its per-layer
+specs resolve to the reference's operating points, and its bucket-padded
+prefill and paged decode logits are allclose to the JAX model's.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +16,7 @@ import pytest
 import torch
 
 from _torch_port import CACHE_LEN, PAGE_SIZE, built, np_tree, prompts
+from repro.core.precision import POLICIES
 from repro.models import transformer as jtransformer
 from repro.models.common import ModelCtx as JCtx
 from repro_torch import bridge
@@ -33,7 +37,12 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-@pytest.mark.parametrize("policy", ["binary", "ternary", "int8"])
+#: every policy, the first slice's three first (their test ids stay)
+ALL_POLICIES = ["binary", "ternary", "int8"] + sorted(
+    set(POLICIES) - {"binary", "ternary", "int8"})
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
 def test_bridge_and_pack_for_serve_match(policy):
     """4 layers: first, two scanned mid periods, last. The port packs the
     JAX train-layout weights to the JAX packed words/codes; float scales
@@ -50,10 +59,46 @@ def test_bridge_and_pack_for_serve_match(policy):
     for path, w in want_leaves.items():
         g = got_leaves[path]
         assert g.dtype == w.dtype and g.shape == w.shape, path
-        if g.is_floating_point() and path[-1] == "w_scale" and policy != "int8":
+        if g.is_floating_point() and path[-1] == "w_scale" and g.dtype == torch.float32 \
+                and ("w_packed" in _parent(got, path) or "w_mask" in _parent(got, path)):
+            # binary/ternary scales are means, summed in another order
             torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
         else:
             assert torch.equal(g, w), path
+
+
+def _parent(tree, path):
+    for k in path[:-1]:
+        tree = tree[k]
+    return tree
+
+
+def test_het_specs_resolve_per_layer():
+    """`het` assigns each layer class its own operating point, first and
+    last blocks included (per_class wins over first_last); lm_head falls to
+    first_last. The port's specs equal the reference's, layer by layer."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.common import operating_point
+    jcfg, tcfg, _, _ = built("het", n_layers=4)
+    sp = transformer.build_specs(tcfg)
+    jsp = jtransformer.build_specs(jcfg)
+    jblocks = [jsp.first] + [jsp.mid[0]] * 2 + [jsp.last]
+    for bs, jbs in zip(sp.blocks, jblocks):
+        for t, j in ((bs.mixer.qkv, jbs.mixer.qkv), (bs.mixer.out, jbs.mixer.out),
+                     (bs.ffn.up, jbs.ffn.up), (bs.ffn.down, jbs.ffn.down)):
+            assert dataclasses.asdict(t.lq) == dataclasses.asdict(j.lq), t.name
+        assert (bs.mixer.qkv.lq.tag, bs.mixer.out.lq.tag, bs.ffn.up.lq.tag,
+                bs.ffn.down.lq.tag) == tuple(get_policy("het").per_class[c].tag for c in
+                                             ("attn_qkv", "attn_out", "ffn_up",
+                                              "ffn_down"))
+    assert sp.lm_head.lq == get_policy("het").first_last
+    assert dataclasses.asdict(sp.lm_head.lq) == dataclasses.asdict(jsp.lm_head.lq)
+    keys = {dispatch.lookup(operating_point(s, CTX)).key
+            for s in (sp.blocks[1].mixer.qkv, sp.blocks[1].mixer.out,
+                      sp.blocks[1].ffn.up, sp.lm_head)}
+    assert keys == {("int8", "int8", "*"), ("ternary", "int8", "*"),
+                    ("int4", "int8", "*")}
 
 
 def _tables(b):
@@ -65,7 +110,8 @@ def _tables(b):
     return pages
 
 
-@pytest.mark.parametrize("policy", ["binary", "ternary", "int8"])
+@pytest.mark.parametrize("policy", ["binary", "ternary", "int8", "w-ternary",
+                                    "mixed", "wt-a8", "w4a8", "het"])
 def test_prefill_and_decode_logits_match(policy):
     """Bucket-padded prefill with last_pos, then two paged decode steps at
     per-row positions, against the JAX model (its gather path) in f32."""
