@@ -13,9 +13,12 @@ Phases:
                GEMM under each of its seven MAC bodies at M = 4, 32 and 256
                (int32 accumulator and bf16 requant output bit-equal, bias
                on and off; the mxu bodies' accumulators equal the popcount
-               bodies'), paged decode (bf16 and int8 pools, within 2e-2),
-               flash attention (T = 256, bf16, within 3e-2); with kernel,
-               plain and library times and the bound of each
+               bodies'), the plane-composed bodies (K10, int4 and int8
+               stacks) at P = 1, 2 and bits live planes (bit-equal, and at P
+               = bits equal to the direct int8 / int4 bodies' accumulators
+               on the composed codes), paged decode (bf16 and int8 pools,
+               within 2e-2), flash attention (T = 256, bf16, within 3e-2);
+               with kernel, plain and library times and the bound of each
   4. serve   — full-width, 28-layer llama3.2-3b from the port's seeded init,
                8 requests through the paged continuous-batching server:
                binary, ternary and int8 on the serve CLI's 4..16-token
@@ -27,14 +30,22 @@ Phases:
                last). Every run reads each kernel's launch count (set to 0
                just before it) and fails if a kernel its layers resolve to
                was not launched; a 4-slot server's tokens must equal a
-               1-slot server's, and mxu tokens the popcount tokens; then one
-               profiled 4-slot decode tick for binary, ternary, int8, het and
-               w-ternary (wall time, device busy time, top kernels)
+               1-slot server's, and mxu tokens the popcount tokens; int8 and
+               w4a8 at 28 layers on the mix with `--impl planes` (tokens ==
+               the direct cells' tokens, 4-slot == 1-slot) and with
+               self-speculative decoding at a sign-plane draft (planes:1)
+               and a full-depth draft (planes:8), and binary with a
+               planes:1 draft (the per-layer popcount fallback): spec
+               tokens == sequential tokens, with the drafted and accepted
+               counts; then one profiled 4-slot decode tick for binary,
+               ternary, int8, het, w-ternary and int8 under planes (wall
+               time, device busy time, top kernels)
   5. summary — one line per kernel, then one JSON line of kernel records:
                ms, plain_ms, bound_ms and library_ms are per decode tick of
                the serve path for a GEMM body (4 slots, the layers that run
                it: 28 x {qkv, out, up, down} + lm_head for a whole-model body,
-               het's layers for the mixed bodies), 28 launches for paged
+               het's layers for the mixed bodies, w4a8's 26 body layers for
+               the int4 plane body), 28 launches for paged
                decode, and per 256-token prefill (28 layers) for flash
                attention
 The last line is {"ok": true, "device": {...}} only when every phase passed;
@@ -72,7 +83,13 @@ MIXED_RUNS = (("het", "popcount"), ("w-ternary", "popcount"),
 SHALLOW_POLICIES = ("mixed", "wt-a8", "w4a8", "w-binary", "w-int4", "w-int8",
                     "none")
 SHALLOW = 3
-PROFILED = ("binary", "ternary", "int8", "het", "w-ternary")
+PROFILED = (("binary", "popcount"), ("ternary", "popcount"), ("int8", "popcount"),
+            ("het", "popcount"), ("w-ternary", "popcount"), ("int8", "planes"))
+#: full-depth --impl planes and speculative runs on the mixed prompts
+PLANE_POLICIES = ("int8", "w4a8")
+SPEC_DRAFTS = ("planes:1", "planes:8")     # sign plane; full depth
+SPEC_K = 4
+PLANE_DEPTHS = (1, 2)                      # truncations checked besides bits
 SLOTS, CACHE_LEN, PAGE_SIZE, REQUESTS, MAX_NEW = 4, 256, 32, 8, 16
 PREFILL_BUCKET = 32          # the serve CLI's 4..16-token prompts land here
 LONG_BUCKET = 256            # the 129..224-token prompts land here
@@ -87,6 +104,8 @@ REPLACES = {
     "tgemm_mxu": _GEMM.format("TERNARY_MXU", "tgemm.py:56"),
     "tgemm_wt_i8a": _GEMM.format("TERNARY_W_I8A", "tgemm.py:70"),
     "i4gemm_w4a8": _GEMM.format("INT4_W_I8A", "i4gemm.py:25"),
+    "pgemm_w4a8_planes": _GEMM.format("PLANES_W4_I8A", "pgemm.py:39 _planes_step, :61"),
+    "pgemm_w8a8_planes": _GEMM.format("PLANES_W8_I8A", "pgemm.py:39 _planes_step, :62"),
     "paged_flash_decode": "src/repro/kernels/paged_attn.py:205 (paged_flash_decode)",
     "flash_attention": "src/repro/kernels/flash_attn.py:86 (flash_attention, "
                        "_flash_kernel :31)",
@@ -282,6 +301,95 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
             "library_ms": None}
 
 
+def composed_codes(stack, k, bits, chunk=8192):
+    """(N, K) int8 codes of a full plane stack, N rows at a time."""
+    from repro_torch.core import pack
+    n = stack.shape[1]
+    return torch.cat([pack.unpack_planes_i8(stack[:, a:a + chunk], k, bits)
+                      for a in range(0, n, chunk)])
+
+
+def check_planes(body, cfg, flush, gen) -> dict:
+    """K10 vs its plain version at every serve GEMM shape, at M = SLOTS and
+    both prefill buckets, at P = 1, 2 and bits live planes (int32
+    accumulator and bf16 output bit-equal, bias on and off); at P = bits
+    the accumulator must also equal the direct body's (int8: K1, int4: K9)
+    on the composed codes. Returns the per-decode-tick record at P = bits:
+    the int8 body runs every layer of an int8 `--impl planes` tick, the
+    int4 body w4a8's 26 body layers."""
+    from repro_torch.core import pack
+    from repro_torch.kernels import harness, i4gemm, i8gemm
+    bits = body.w_stack
+    direct = i8gemm.I8_DOT if bits == 8 else i4gemm.INT4_W_I8A
+    tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    for m in (SLOTS, PREFILL_BUCKET, LONG_BUCKET):
+        for si, (name, n, k, per_tick) in enumerate(gemm_shapes(cfg)):
+            if bits == 4:
+                per_tick = 0 if name == "lm_head" else per_tick - 2
+            gen.manual_seed(2000 * m + si)
+            x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                              generator=gen)
+            stack = torch.randint(-2 ** 31, 2 ** 31 - 1, (bits, n, k // 32),
+                                  dtype=torch.int32, device="cuda", generator=gen)
+            ws = torch.rand(n, device="cuda", generator=gen) * 0.1 + 1e-3
+            as_ = torch.rand(m, device="cuda", generator=gen) + 0.1
+            bias = torch.randn(n, device="cuda", generator=gen)
+            ms = {}
+            for p in PLANE_DEPTHS + (bits,):
+                w = (stack[:p],)
+                dot = body.plain((x,), w, k)
+                acc = harness.gemm(body, (x,), w, None, None, k=k, out="acc")
+                if not torch.equal(acc, dot):
+                    raise AssertionError(f"{body.name} {name} M={m} P={p}: kernel "
+                                         f"accumulator != plain")
+                for b in (None, bias):
+                    got = harness.gemm(body, (x,), w, ws, as_, b, k=k)
+                    want = harness.requant(dot, ws, as_, b).to(torch.bfloat16)
+                    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                        raise AssertionError(f"{body.name} {name} M={m} P={p} bias="
+                                             f"{b is not None}: kernel != plain")
+                if m == SLOTS:
+                    ms[p] = time_ms(lambda: harness.gemm(body, (x,), w, ws, as_, k=k),
+                                    20, flush)
+            codes = composed_codes(stack, k, bits)
+            wd = codes.T.contiguous() if bits == 8 else pack.pack_int4(codes)
+            if not torch.equal(acc, harness.gemm(direct, (x,), (wd,), None, None,
+                                                 k=k, out="acc")):
+                raise AssertionError(f"{body.name} {name} M={m}: P = {bits} "
+                                     f"accumulator != {direct.name} accumulator")
+            del wd
+            nbytes = m * k + stack.numel() * 4 + 4 * (m + n) + 2 * m * n
+            ops = 2.0 * m * n * k
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+            msg = (f"[kernels] {body.name} {name:8s} M={m:3d} N={n:6d} K={k:5d} "
+                   f"P in {PLANE_DEPTHS + (bits,)}: bit-equal ok, P={bits} == "
+                   f"{direct.name}")
+            if m == SLOTS:
+                pms = time_ms(lambda: harness.requant(body.plain((x,), (stack,), k),
+                                                      ws, as_, None).to(torch.bfloat16), 2)
+                msg += ("  kernel " + " / ".join(f"P={p} {t:.4f}" for p, t in ms.items())
+                        + f" ms  plain {pms:.3f} ms")
+                tick["ms"] += per_tick * ms[bits]
+                tick["plain_ms"] += per_tick * pms
+                tick["bytes"] += per_tick * nbytes
+                tick["ops"] += per_tick * ops
+            else:
+                wi = codes.T.contiguous()
+                lib = time_ms(lambda: torch._int_mm(x, wi), 20, flush)
+                kms = time_ms(lambda: harness.gemm(body, (x,), (stack,), ws, as_, k=k),
+                              20, flush)
+                msg += f"  kernel P={bits} {kms:.4f} ms  torch._int_mm {lib:.4f} ms"
+                del wi
+            log(msg + f"  bound {bound:.4f} ms")
+            del codes, stack
+    t_bytes = tick["bytes"] / HBM_BYTES_PER_S
+    t_ops = tick["ops"] / INT8_OPS_PER_S
+    return {"name": body.name, "max_abs_err": 0.0, "ms": tick["ms"],
+            "plain_ms": tick["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
 def check_paged(cfg, flush, gen) -> dict:
     """Kernel vs plain for the 4-slot decode at PAGED_POS, bf16 and int8
     pools; returns the per-decode-tick record of the bf16 pool (the serve
@@ -403,7 +511,8 @@ def phase_kernels(cfg, recs: list) -> None:
     flush = torch.ones(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     accs = {}
     for body in BODIES:              # popcount bodies before their mxu twins
-        recs.append(check_gemm(body, cfg, flush, gen, accs))
+        recs.append(check_planes(body, cfg, flush, gen) if body.w_stack
+                    else check_gemm(body, cfg, flush, gen, accs))
     recs.append(check_paged(cfg, flush, gen))
     recs.append(check_flash(cfg, flush, gen))
     log("[kernels] mxu accumulators == popcount accumulators at every shape")
@@ -427,11 +536,12 @@ def mixed_prompts(cfg):
                          ).astype(np.int32) for i in range(REQUESTS)]
 
 
-def serve(cfg, sparams, slots, reqs, impl="popcount"):
+def serve(cfg, sparams, slots, reqs, impl="popcount", spec_draft=None):
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models.common import ModelCtx
     srv = Server(cfg, sparams, slots=slots, cache_len=CACHE_LEN,
-                 page_size=PAGE_SIZE, ctx=ModelCtx(impl=impl), device="cuda")
+                 page_size=PAGE_SIZE, ctx=ModelCtx(impl=impl), device="cuda",
+                 spec_draft=spec_draft, spec_k=SPEC_K)
     for i, p in enumerate(reqs):
         srv.submit(Request(i, p, MAX_NEW, seed=i))
     t0 = time.perf_counter()
@@ -441,34 +551,41 @@ def serve(cfg, sparams, slots, reqs, impl="popcount"):
     return srv, ticks, dt
 
 
-def expected_kernels(cfg, impl, reqs) -> set:
+def expected_kernels(cfg, impl, reqs, spec_draft=None) -> set:
     """The kernels a serve run must launch: the GEMM body of every layer
-    that has one, paged decode, and flash attention when a prompt lands in
-    a bucket that is a multiple of 256."""
+    that has one (under the draft's context too, for a speculative run),
+    paged decode, and flash attention when a prompt lands in a bucket that
+    is a multiple of 256."""
     from repro_torch.kernels import dispatch
     from repro_torch.models import transformer
     from repro_torch.models.common import ModelCtx, operating_point
     sp = transformer.build_specs(cfg)
     specs = [sp.lm_head] + [s for b in sp.blocks for s in
                             (b.mixer.qkv, b.mixer.out, b.ffn.up, b.ffn.down)]
+    ctxs = [ModelCtx(impl=impl)]
+    if spec_draft:
+        depth = spec_draft.partition(":")[2]
+        ctxs.append(ModelCtx(impl="planes", draft_planes=int(depth or 1)))
     want = {"paged_flash_decode"}
     for spec in specs:
-        body = dispatch.lookup(operating_point(spec, ModelCtx(impl=impl))).body
-        if body is not None:
-            want.add(body.name)
+        for ctx in ctxs:
+            body = dispatch.lookup(operating_point(spec, ctx)).body
+            if body is not None:
+                want.add(body.name)
     if any(len(p) > CACHE_LEN // 2 for p in reqs):
         want.add("flash_attention")
     return want
 
 
-def served(label, cfg, sparams, impl, reqs, device_name, total) -> dict:
+def served(label, cfg, sparams, impl, reqs, device_name, total,
+           spec_draft=None) -> dict:
     """One 4-slot serve run with the launch counts set to 0 just before it
     and read just after, added to `total`; returns the tokens by request."""
     import repro_torch.kernels as K
     from repro_torch.launch.serve import tree_nbytes
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    srv, ticks, dt = serve(cfg, sparams, SLOTS, reqs, impl)
+    srv, ticks, dt = serve(cfg, sparams, SLOTS, reqs, impl, spec_draft)
     runs = K.launch_counts()
     for name, n in runs.items():
         total[name] = total.get(name, 0) + n
@@ -479,12 +596,20 @@ def served(label, cfg, sparams, impl, reqs, device_name, total) -> dict:
         f"{toks / dt:.1f} tok/s on {device_name}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
         f"{ {k: v for k, v in runs.items() if v} }")
+    if spec_draft:
+        st = srv.stats
+        if not srv.spec or st["spec_ticks"] == 0:
+            raise AssertionError(f"{label}: the server did not speculate")
+        log(f"[serve] {label}: spec_ticks {st['spec_ticks']}, spec_proposed "
+            f"{st['spec_proposed']}, spec_accepted {st['spec_accepted']}, "
+            f"spec_emitted {st['spec_emitted']}, {toks / dt:.1f} tok/s")
     if len(srv.completed) != len(reqs) or toks != len(reqs) * MAX_NEW:
         raise AssertionError(f"{label}: served {len(srv.completed)} requests, "
                              f"{toks} tokens")
     if not all(0 <= t < cfg.vocab for o in out.values() for t in o):
         raise AssertionError(f"{label}: token ids out of range")
-    missing = sorted(n for n in expected_kernels(cfg, impl, reqs) if runs[n] == 0)
+    missing = sorted(n for n in expected_kernels(cfg, impl, reqs, spec_draft)
+                     if runs[n] == 0)
     if missing:
         raise AssertionError(f"{label}: kernels {missing} never launched")
     return out
@@ -513,8 +638,12 @@ def phase_serve(cfg0, device_name) -> dict:
         f"{cfg0.n_heads}/{cfg0.n_kv_heads} heads, d_ff {cfg0.d_ff}, vocab "
         f"{cfg0.vocab}; seeded init in {time.perf_counter() - t0:.1f}s")
     cfgs = {pol: dataclasses.replace(cfg0, policy=pol)
-            for pol in POLICIES + tuple(p for p, _ in MIXED_RUNS)}
-    packed = {pol: transformer.pack_for_serve(train, cfg) for pol, cfg in cfgs.items()}
+            for pol in POLICIES + tuple(p for p, _ in MIXED_RUNS) + PLANE_POLICIES}
+    packed = {pol: transformer.pack_for_serve(train, cfgs[pol])
+              for pol in POLICIES + tuple(p for p, _ in MIXED_RUNS)}
+    # with the stacked bit-plane twin, for --impl planes and the spec draft
+    twins = {pol: transformer.pack_for_serve(train, cfgs[pol], plane_twins=True)
+             for pol in PLANE_POLICIES}
     del train
     torch.cuda.empty_cache()
 
@@ -535,6 +664,7 @@ def phase_serve(cfg0, device_name) -> dict:
                 raise AssertionError(f"{label}: mxu tokens != popcount tokens")
             log(f"[serve] {label}: mxu tokens == popcount tokens")
         same_as_one_slot(label, cfgs[policy], packed[policy], impl, mixed, out)
+    planes_and_spec(cfgs, packed, twins, outs, mixed, device_name, total)
 
     shallow = dataclasses.replace(cfg0, n_layers=SHALLOW)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -559,12 +689,43 @@ def phase_serve(cfg0, device_name) -> dict:
             raise AssertionError(f"{policy}: prefill logits {tuple(logits.shape)}, "
                                  f"finite={bool(torch.isfinite(logits).all())}")
     log(f"[serve] prefill logits finite, shape (1, 1, {cfg0.vocab}), every policy")
-    for policy in PROFILED:
-        profile_tick(cfgs[policy], packed[policy], device_name)
+    for policy, impl in PROFILED:
+        profile_tick(cfgs[policy], (twins if impl == "planes" else packed)[policy],
+                     device_name, impl)
     return total
 
 
-def profile_tick(cfg, sparams, device_name) -> None:
+def planes_and_spec(cfgs, packed, twins, outs, mixed, device_name, total) -> None:
+    """This slice's paths at 28 layers on the mixed prompts: `--impl planes`
+    and self-speculative decoding, each held to the direct cells' tokens."""
+    for policy in PLANE_POLICIES:
+        cfg, sp = cfgs[policy], twins[policy]
+        direct = served(f"policy={policy} impl=popcount (mixed prompts)", cfg, sp,
+                        "popcount", mixed, device_name, total)
+        label = f"policy={policy} impl=planes (mixed prompts)"
+        out = served(label, cfg, sp, "planes", mixed, device_name, total)
+        if out != direct:
+            raise AssertionError(f"{label}: planes tokens != direct-cell tokens")
+        log(f"[serve] {label}: planes tokens == direct-cell tokens")
+        same_as_one_slot(label, cfg, sp, "planes", mixed, out)
+        for draft in SPEC_DRAFTS:
+            label = (f"policy={policy} spec-draft={draft} spec-k={SPEC_K} "
+                     f"(mixed prompts)")
+            got = served(label, cfg, sp, "popcount", mixed, device_name, total,
+                         spec_draft=draft)
+            if got != direct:
+                raise AssertionError(f"{label}: spec tokens != sequential tokens")
+            log(f"[serve] {label}: spec tokens == sequential tokens")
+    # binary has no plane cell: the draft falls back to popcount per layer
+    label = f"policy=binary spec-draft=planes:1 spec-k={SPEC_K} (mixed prompts)"
+    got = served(label, cfgs["binary"], packed["binary"], "popcount", mixed,
+                 device_name, total, spec_draft="planes:1")
+    if got != outs["binary", "popcount"]:
+        raise AssertionError(f"{label}: spec tokens != sequential tokens")
+    log(f"[serve] {label}: spec tokens == sequential tokens")
+
+
+def profile_tick(cfg, sparams, device_name, impl="popcount") -> None:
     """Where one 4-slot decode tick's time goes: host wall time, device busy
     time and kernel count from torch.profiler, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -581,7 +742,8 @@ def profile_tick(cfg, sparams, device_name) -> None:
     sp = transformer.build_specs(cfg)
 
     def tick():
-        transformer.decode_step(sparams, cache, toks, pos, sp, ModelCtx(), pages=pages)
+        transformer.decode_step(sparams, cache, toks, pos, sp, ModelCtx(impl=impl),
+                                pages=pages)
 
     tick()
     torch.cuda.synchronize()
@@ -601,10 +763,10 @@ def profile_tick(cfg, sparams, device_name) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     if not kernels:
-        log(f"[profile] policy={cfg.policy}: decode tick {wall:.2f} ms wall; device "
+        log(f"[profile] policy={cfg.policy} impl={impl}: decode tick {wall:.2f} ms wall; device "
             f"time not measured (the profiler recorded no device events)")
         return
-    log(f"[profile] policy={cfg.policy}: decode tick {wall:.2f} ms wall, device busy "
+    log(f"[profile] policy={cfg.policy} impl={impl}: decode tick {wall:.2f} ms wall, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f} %), {len(kernels)} kernels on "
         f"{device_name}; top: " + ", ".join(f"{n[:40]} {t:.3f} ms" for n, t in top))
 

@@ -4,7 +4,8 @@
 arrays (`jax.tree.map(np.asarray, params)`), in the train layout of
 `transformer.init` or the packed serve layout of `pack_for_serve`, and
 returns the port's params:
-  * uint32 packed words become int32 tensors with their bits unchanged;
+  * uint32 packed words (the bit-plane stacks `w_planes` included) become
+    int32 tensors with their bits unchanged;
   * bfloat16 arrays (numpy's `ml_dtypes` extension type) are carried bit
     for bit;
   * the reference's stacked `mid` periods (a leading n_periods axis over

@@ -9,6 +9,8 @@ JAX package's:
   ternary: two planes (mask, sign) of K/32 words each
   int4   : K/8 words, nibble j of word i = s4 code 8*i+j (two's complement)
   int8   : native int8 codes (no packing)
+  planes : int4/int8 codes as a stack of binary planes (..., bits, N, K/32),
+           MSB-first two's complement (the plane-composed cells' weights)
 
 torch has limited uint32 support (no `>>` for uint32 on the CPU), so the
 port stores every packed word as **int32 with its bits unchanged**. int32
@@ -22,6 +24,15 @@ import torch
 
 WORD = 32  # bits per packed word
 NIBBLES = 8  # s4 codes per packed word
+
+#: total bit-planes of each plane-decomposable weight precision (two's
+#: complement: plane 0 is the sign plane, coefficient -2^(b-1))
+PLANE_BITS = {"int4": 4, "int8": 8}
+
+#: K elements per unit of each packed leaf's storage axis; a leaf absent
+#: here is unpacked (one element per storage unit)
+K_QUANTUM = {"w_packed": WORD, "w_mask": WORD, "w_sign": WORD,
+             "w_q4": NIBBLES, "w_planes": WORD}
 
 
 def _check_k(k: int) -> None:
@@ -109,6 +120,48 @@ def unpack_int4_i8(words: torch.Tensor, k: int) -> torch.Tensor:
     nib = (words.to(torch.int32).unsqueeze(-1) >> shifts) & 0xF   # mask after >>
     nib = nib.reshape(*words.shape[:-1], words.shape[-1] * NIBBLES)[..., :k]
     return torch.where(nib >= 8, nib - 16, nib).to(torch.int8)
+
+
+# -- bit-plane stacks (int4/int8 as shifted sums of binary planes) -----------
+#
+# A b-bit two's-complement code c is exactly
+#     c = -2^(b-1) * bit_{b-1} + sum_{j<b-1} 2^j * bit_j,
+# stored MSB-first along a plane axis inserted before the last two axes:
+# (N, K) codes become a (b, N, K/32) stack, (E, N, K) become (E, b, N, K/32).
+# A leading slice [:P] keeps its coefficients and composes to the floor
+# truncation floor(c / 2^(b-P)) * 2^(b-P): the self-speculative draft.
+
+
+def plane_coeffs(bits: int) -> tuple[int, ...]:
+    """MSB-first per-plane coefficients of the b-bit two's-complement
+    decomposition: (-2^(b-1), 2^(b-2), ..., 2, 1)."""
+    if not 2 <= bits <= 8:
+        raise ValueError(f"plane decomposition supports 2..8 bits, got {bits}")
+    return (-(1 << (bits - 1)),) + tuple(1 << (bits - 1 - i) for i in range(1, bits))
+
+
+def pack_planes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """b-bit two's-complement codes (integer dtype, last axis = K) -> int32
+    plane stack (..., bits, N, K/32), MSB-first. The b-bit field is masked
+    before any shift, so int32's arithmetic `>>` never sees a sign bit."""
+    plane_coeffs(bits)                               # validates bits
+    _check_k(codes.shape[-1])
+    if codes.ndim < 2:
+        raise ValueError("pack_planes needs at least a (N, K) matrix")
+    field = codes.to(torch.int32) & ((1 << bits) - 1)
+    return torch.stack([pack_bits((field >> (bits - 1 - i)) & 1)
+                        for i in range(bits)], dim=-3)
+
+
+def unpack_planes_i8(planes: torch.Tensor, k: int, bits: int) -> torch.Tensor:
+    """Compose a (possibly truncated) plane stack (..., P, N, K/32) back to
+    int8 codes (..., N, k): the stored codes at P == bits, their floor
+    truncation to the top P planes below that."""
+    p_live = planes.shape[-3]
+    coeffs = torch.tensor(plane_coeffs(bits)[:p_live], dtype=torch.int32,
+                          device=planes.device)
+    bitsmat = unpack_bits(planes, k).to(torch.int32)          # (..., P, N, k)
+    return (bitsmat * coeffs[:, None, None]).sum(dim=-3).to(torch.int8)
 
 
 # -- packed dot products (the XNOR/gated-XNOR algebra, §II-A) ----------------

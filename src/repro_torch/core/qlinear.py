@@ -51,10 +51,12 @@ def pack_params(p: Params, spec: QLinearSpec) -> Params:
              w_scale   f32[out]
     int8   : w_q       int8[in, out]       (K-major)
              w_scale   f32[out]
+    int4/int8 weights with int8 acts and word-aligned in_dim also carry the
+    stacked bit-plane twin of the same codes, feeding the plane-composed
+    cells (impl="planes") and their truncated-plane drafts:
+             w_planes  int32[bits, out, in/32]  (MSB-first 2c planes)
     none   : w         bf16[in, out]       (dense weights, cast)
     `a_scale` (f32 scalar) is the calibrated activation scale for int8 acts.
-    The reference's stacked bit-plane twin (`w_planes`) feeds the plane
-    cells (`impl="planes"`), which are not ported yet, and is not produced.
     """
     w = p["w"].to(torch.float32)
     prec = spec.lq.weights.precision
@@ -70,11 +72,18 @@ def pack_params(p: Params, spec: QLinearSpec) -> Params:
         out["w_scale"] = (torch.abs(wt) * torch.abs(q)).sum(dim=-1) / nz
     elif prec == "int4":
         s = int4_scale(wt, axis=-1)                # per out-channel, reduce in
-        out["w_q4"] = pack.pack_int4(int4_codes(wt, s))
+        codes = int4_codes(wt, s)
+        out["w_q4"] = pack.pack_int4(codes)
+        if _plane_twin(spec):
+            out["w_planes"] = pack.pack_planes(codes, pack.PLANE_BITS[prec])
         out["w_scale"] = s.squeeze(-1)
     elif prec == "int8":
         s = int8_scale(w, axis=(w.ndim - 2,))      # reduce in_dim
-        out["w_q"] = int8_codes(w, s)
+        codes = int8_codes(w, s)
+        out["w_q"] = codes
+        if _plane_twin(spec):
+            out["w_planes"] = pack.pack_planes(codes.transpose(-1, -2),
+                                               pack.PLANE_BITS[prec])
         out["w_scale"] = s.squeeze(w.ndim - 2)
     else:
         out["w"] = w.to(torch.bfloat16)
@@ -83,6 +92,11 @@ def pack_params(p: Params, spec: QLinearSpec) -> Params:
     if "b" in p:
         out["b"] = p["b"].to(torch.float32)
     return out
+
+
+def _plane_twin(spec: QLinearSpec) -> bool:
+    """int4/int8 weights get the plane twin under int8 acts, word-aligned K."""
+    return spec.lq.acts.precision == "int8" and spec.in_dim % pack.WORD == 0
 
 
 def apply(p: Params, x: torch.Tensor, spec: QLinearSpec, *,

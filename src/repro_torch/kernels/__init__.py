@@ -8,6 +8,7 @@ bgemm      — binary bodies: XNOR+popcount, and ±1 unpack + __dp4a (mxu)
 tgemm      — ternary bodies: gated XNOR, trit unpack + __dp4a (mxu), and
              trit weights x int8 activations
 i4gemm     — s4 nibble weights x int8 activations
+pgemm      — int4/int8 weights as stacked binary planes x int8 activations
 paged_attn — paged flash-decode (csrc/paged_attn.cu)
 flash_attn — causal GQA prefill attention (csrc/flash_attn.cu)
 dispatch   — OperatingPoint-keyed registry + `qgemm`, the serve entry point
@@ -17,12 +18,12 @@ Importing builds nothing: a kernel is compiled at its first launch (or by
 `build.build_all()`).
 """
 from . import (bgemm, dispatch, flash_attn, harness, i4gemm, i8gemm,  # noqa: F401
-               paged_attn, tgemm)
+               paged_attn, pgemm, tgemm)
 
 #: every GEMM body on the serve path
 BODIES = (i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT,
           bgemm.BINARY_MXU, tgemm.TERNARY_MXU, tgemm.TERNARY_W_I8A,
-          i4gemm.INT4_W_I8A)
+          i4gemm.INT4_W_I8A, pgemm.PLANES_W4_I8A, pgemm.PLANES_W8_I8A)
 
 #: every kernel launcher on the serve path, by name
 KERNELS = {

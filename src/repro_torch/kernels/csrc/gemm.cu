@@ -2,7 +2,7 @@
 // the MAC body a compile-time parameter.
 //
 // Replaces the TPU kernel `repro/kernels/harness.py` `gemm` + `_kernel`
-// (one pallas_call skeleton) with seven of its MacBodies:
+// (one pallas_call skeleton) with nine of its MacBodies:
 //   BODY_I8            `repro/kernels/i8gemm.py` `_i8_step`        (I8_DOT)
 //   BODY_BINARY        `repro/kernels/bgemm.py`  `_popcount_step`  (BINARY_POPCOUNT)
 //   BODY_TERNARY       `repro/kernels/tgemm.py`  `_popcount_step`  (TERNARY_POPCOUNT)
@@ -10,6 +10,8 @@
 //   BODY_TERNARY_MXU   `repro/kernels/tgemm.py`  `_mxu_step`       (TERNARY_MXU)
 //   BODY_TERNARY_W_I8A `repro/kernels/tgemm.py`  `_wt_i8a_step`    (TERNARY_W_I8A)
 //   BODY_INT4_W_I8A    `repro/kernels/i4gemm.py` `_w4a8_step`      (INT4_W_I8A)
+//   BODY_PLANES_W4     `repro/kernels/pgemm.py`  `_planes_step`    (PLANES_W4_I8A)
+//   BODY_PLANES_W8     `repro/kernels/pgemm.py`  `_planes_step`    (PLANES_W8_I8A)
 //
 // What it computes, for an (M, N) output:
 //   dot[m, n] = finish(sum over K of mac(x[m, k], w[n, k]))   (int32, exact)
@@ -22,6 +24,10 @@
 //   F_BITS      K/32 words, bit k of word j = operand 32j+k (1 encodes +1)
 //   F_TRITS     two F_BITS planes, mask (non-zero) and sign (negative)
 //   F_S4        K/8 words, nibble j of word i = s4 code 8i+j
+//   F_PLANES    a stack of P <= BITS binary planes (P, N, K/32), MSB-first
+//               two's complement: plane 0 is the sign plane (coefficient
+//               -2^(BITS-1)), plane i has coefficient 2^(BITS-1-i); plane i
+//               of row n starts at w0 + i * plane_stride + n * K/32
 // The two sides of a body may differ (the mixed bodies: int8 codes against
 // trit planes or s4 nibbles), so each side is staged by its own density.
 //
@@ -33,7 +39,11 @@
 // row read as a word), so one __dp4a does four MACs. The tile load builds
 // those words: int8 rows are copied; K-major int8 weights are transposed
 // four columns at a time; bits, trits and nibbles are unpacked to ±1,
-// {-1, 0, +1} and sign-extended s4 bytes. The reference's MXU bodies dot the
+// {-1, 0, +1} and sign-extended s4 bytes; the P live plane words of a plane
+// stack are composed into the codes sum_i coeff_i * bit_i (each fits an
+// int8, truncated or not: a missing plane contributes 0), so the __dp4a
+// loop's dot is integer-identical to the reference's per-plane sum
+// sum_i coeff_i * (x . plane_i). The reference's MXU bodies dot the
 // unpacked values in f32 and cast; this port takes the integer dot, which
 // is the same number and equals the popcount bodies' dot bit for bit.
 //
@@ -72,8 +82,9 @@ constexpr int WARPS = THREADS / 32;
 constexpr int RPT = BM / WARPS;  // rows per thread
 
 enum { BODY_I8 = 0, BODY_BINARY = 1, BODY_TERNARY = 2, BODY_BINARY_MXU = 3,
-       BODY_TERNARY_MXU = 4, BODY_TERNARY_W_I8A = 5, BODY_INT4_W_I8A = 6 };
-enum { F_I8, F_I8_KMAJOR, F_BITS, F_TRITS, F_S4 };
+       BODY_TERNARY_MXU = 4, BODY_TERNARY_W_I8A = 5, BODY_INT4_W_I8A = 6,
+       BODY_PLANES_W4 = 7, BODY_PLANES_W8 = 8 };
+enum { F_I8, F_I8_KMAJOR, F_BITS, F_TRITS, F_S4, F_PLANES };
 enum { MAC_XNOR, MAC_GXNOR, MAC_DP4A };
 
 template <int MAC> struct Mac;
@@ -104,14 +115,17 @@ template <> struct Mac<MAC_DP4A> {
   __device__ static int finish(const int* acc, int) { return acc[0]; }
 };
 
+// BITS: planes of a full F_PLANES weight stack (0 for the other formats)
 template <int BODY> struct Body;
-template <> struct Body<BODY_I8>            { static constexpr int XF = F_I8,    WF = F_I8_KMAJOR, MAC = MAC_DP4A; };
-template <> struct Body<BODY_BINARY>        { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_XNOR; };
-template <> struct Body<BODY_TERNARY>       { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_GXNOR; };
-template <> struct Body<BODY_BINARY_MXU>    { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_DP4A; };
-template <> struct Body<BODY_TERNARY_MXU>   { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_DP4A; };
-template <> struct Body<BODY_TERNARY_W_I8A> { static constexpr int XF = F_I8,    WF = F_TRITS,     MAC = MAC_DP4A; };
-template <> struct Body<BODY_INT4_W_I8A>    { static constexpr int XF = F_I8,    WF = F_S4,        MAC = MAC_DP4A; };
+template <> struct Body<BODY_I8>            { static constexpr int XF = F_I8,    WF = F_I8_KMAJOR, MAC = MAC_DP4A,  BITS = 0; };
+template <> struct Body<BODY_BINARY>        { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_XNOR,  BITS = 0; };
+template <> struct Body<BODY_TERNARY>       { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_GXNOR, BITS = 0; };
+template <> struct Body<BODY_BINARY_MXU>    { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_DP4A,  BITS = 0; };
+template <> struct Body<BODY_TERNARY_MXU>   { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_DP4A,  BITS = 0; };
+template <> struct Body<BODY_TERNARY_W_I8A> { static constexpr int XF = F_I8,    WF = F_TRITS,     MAC = MAC_DP4A,  BITS = 0; };
+template <> struct Body<BODY_INT4_W_I8A>    { static constexpr int XF = F_I8,    WF = F_S4,        MAC = MAC_DP4A,  BITS = 0; };
+template <> struct Body<BODY_PLANES_W4>     { static constexpr int XF = F_I8,    WF = F_PLANES,    MAC = MAC_DP4A,  BITS = 4; };
+template <> struct Body<BODY_PLANES_W8>     { static constexpr int XF = F_I8,    WF = F_PLANES,    MAC = MAC_DP4A,  BITS = 8; };
 
 // K elements per stored 32-bit word of a (row-major) format
 template <int F> struct Fmt { static constexpr int K_PER_WORD = F == F_S4 ? 8 : F == F_I8 ? 4 : 32; };
@@ -147,15 +161,36 @@ __device__ __forceinline__ uint32_t unpack_s4x4(uint32_t nib) {
   return word4(v[0], v[1], v[2], v[3]);
 }
 
+// Four bits of a word (its low nibble) spread to the low bit of four bytes.
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  return ((nib & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// Four int8 codes, bits sh..sh+3 of each plane word composed as
+// sum_i coeff_i * bit_i. Byte-wise: the sign plane adds -2^(BITS-1) mod 256
+// (0x80 for 8 bits, 0xF8 = -8 for 4 bits: the sign-extended byte), plane i
+// sets bit BITS-1-i; the fields are disjoint, so no carry crosses a byte.
+// A truncated stack's missing planes are zero words and add nothing.
+template <int BITS>
+__device__ __forceinline__ uint32_t compose_planes4(const uint32_t* pw, int sh) {
+  constexpr uint32_t SIGN = (0x100u - (1u << (BITS - 1))) & 0xFFu;
+  uint32_t v = spread4(pw[0] >> sh) * SIGN;
+#pragma unroll
+  for (int i = 1; i < BITS; ++i) v |= spread4(pw[i] >> sh) << (BITS - 1 - i);
+  return v;
+}
+
 // Stage words ku0 .. ku0+KT-1 (in the MAC's units) of rows r0 .. r0+R-1 of
 // one operand into dst[plane][row][word]. Rows past `nrows` and words past
 // K are zero: they are never read by the MAC loop (it stops at K) and a zero
-// row only feeds outputs that are never written.
-template <int F, int MAC, int P, int R>
+// row only feeds outputs that are never written. For F_PLANES, `np` live
+// planes of BITS lie `pstride` words apart.
+template <int F, int MAC, int P, int R, int BITS = 0>
 __device__ __forceinline__ void stage_rows(uint32_t (*dst)[R][KT + 1],
                                            const uint32_t* s0, const uint32_t* s1,
                                            int r0, int nrows, int ku0, int K,
-                                           int tid) {
+                                           int tid, int np = 0,
+                                           long long pstride = 0) {
   constexpr int KPW = Fmt<F>::K_PER_WORD;          // k per source word
   constexpr int KPU = Mac<MAC>::K_PER_WORD;        // k per staged word
   const int W = K / KPW;                           // source words per row
@@ -174,9 +209,20 @@ __device__ __forceinline__ void stage_rows(uint32_t (*dst)[R][KT + 1],
     for (int i = tid; i < R * SW; i += THREADS) {
       const int r = i / SW, c = i % SW, kw = ku0 / Q + c;
       const bool ok = r < nrows && kw < W;
-      const uint32_t a = ok ? s0[(size_t)(r0 + r) * W + kw] : 0u;
+      const size_t off = (size_t)(r0 + r) * W + kw;
+      if constexpr (F == F_PLANES) {
+        uint32_t pw[BITS];
+#pragma unroll
+        for (int i = 0; i < BITS; ++i)
+          pw[i] = ok && i < np ? s0[(size_t)i * pstride + off] : 0u;
+#pragma unroll
+        for (int j = 0; j < Q; ++j)
+          dst[0][r][c * Q + j] = ok ? compose_planes4<BITS>(pw, 4 * j) : 0u;
+        continue;
+      }
+      const uint32_t a = ok ? s0[off] : 0u;
       uint32_t b = 0u;
-      if constexpr (F == F_TRITS) b = ok ? s1[(size_t)(r0 + r) * W + kw] : 0u;
+      if constexpr (F == F_TRITS) b = ok ? s1[off] : 0u;
 #pragma unroll
       for (int j = 0; j < Q; ++j) {
         uint32_t v;
@@ -214,7 +260,7 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
             const uint32_t* __restrict__ w0, const uint32_t* __restrict__ w1,
             const float* __restrict__ w_scale, const float* __restrict__ a_scale,
             const float* __restrict__ bias, void* __restrict__ out, int out_acc,
-            int M, int N, int K) {
+            int M, int N, int K, int w_planes, long long w_plane_stride) {
   using B = Body<BODY>;
   using C = Mac<B::MAC>;
   // +1 word of padding: lane-strided reads of ws hit 32 distinct banks
@@ -237,8 +283,8 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
     if constexpr (B::WF == F_I8_KMAJOR)
       stage_kmajor(ws, w0, n0, N, ku0, K, tid);
     else
-      stage_rows<B::WF, B::MAC, C::PLANES, BN>(ws, w0, w1, n0, min(BN, N - n0),
-                                               ku0, K, tid);
+      stage_rows<B::WF, B::MAC, C::PLANES, BN, B::BITS>(
+          ws, w0, w1, n0, min(BN, N - n0), ku0, K, tid, w_planes, w_plane_stride);
     __syncthreads();
 
     const int kt = min(KT, KU - ku0);
@@ -291,12 +337,18 @@ extern "C" void repro_gemm_tile(int* bm, int* bn, int* kt) {
 // body: one of the BODY_* constants. x1/w1 are the sign planes of trit
 // operands (NULL otherwise); w_scale/a_scale/bias may be NULL (identity).
 // K: the contraction length in elements (a multiple of every side's
-// storage unit; the wrapper checks).
+// storage unit; the wrapper checks). w_planes / w_plane_stride: the live
+// planes P (1 <= P <= the body's BITS) of a plane-stacked weight and the
+// words between two planes; ignored by the other bodies.
 extern "C" int repro_gemm(int body, const void* x0, const void* x1,
                           const void* w0, const void* w1, const float* w_scale,
                           const float* a_scale, const float* bias, void* out,
-                          int out_acc, int M, int N, int K, cudaStream_t stream) {
+                          int out_acc, int M, int N, int K, int w_planes,
+                          long long w_plane_stride, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if ((body == BODY_PLANES_W4 && (w_planes < 1 || w_planes > 4)) ||
+      (body == BODY_PLANES_W8 && (w_planes < 1 || w_planes > 8)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const auto* a0 = static_cast<const uint32_t*>(x0);
   const auto* a1 = static_cast<const uint32_t*>(x1);
@@ -305,7 +357,8 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
 #define LAUNCH(ID)                                                            \
   case ID:                                                                    \
     gemm_kernel<ID><<<grid, THREADS, 0, stream>>>(                            \
-        a0, a1, b0, b1, w_scale, a_scale, bias, out, out_acc, M, N, K);       \
+        a0, a1, b0, b1, w_scale, a_scale, bias, out, out_acc, M, N, K,        \
+        w_planes, w_plane_stride);                                            \
     break;
   switch (body) {
     LAUNCH(BODY_I8)
@@ -315,6 +368,8 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
     LAUNCH(BODY_TERNARY_MXU)
     LAUNCH(BODY_TERNARY_W_I8A)
     LAUNCH(BODY_INT4_W_I8A)
+    LAUNCH(BODY_PLANES_W4)
+    LAUNCH(BODY_PLANES_W8)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,9 +21,10 @@ outside the kernel) and either
 
 All single-device cells of the reference are registered: binary and
 ternary (popcount and mxu), int8, the mixed w-ternary/w-int4 x a-int8
-cells, and the weight-only and dense cells. Not ported: the plane-composed
-cells (`impl="planes"`; asking for one raises rather than falling back),
-tensor and expert parallelism. There is no tune table: the CUDA tile is
+cells, the plane-composed int4/int8 x int8 cells (`impl="planes"`, with
+`OperatingPoint.planes` truncating the stack), and the weight-only and
+dense cells. Not ported: tensor and expert parallelism. There is no tune
+table: the CUDA tile is
 compile-time (`harness.Tile`), and the reference's `tune_cpu.json` holds
 interpret-mode CPU picks that say nothing about the card.
 """
@@ -37,18 +38,28 @@ import torch
 from repro_torch.core import pack
 from repro_torch.core.quantize import int8_codes, row_mean, ternarize
 
-from . import bgemm, harness, i4gemm, i8gemm, tgemm
+from . import bgemm, harness, i4gemm, i8gemm, pgemm, tgemm
 
 
 @dataclasses.dataclass(frozen=True)
 class OperatingPoint:
     """One configuration of the datapath: wprec/aprec name the registry
-    cell, impl the kernel formulation ("popcount" | "mxu", or "*" when the
-    cell is formulation-agnostic). Where the cell runs follows from the
-    device of its tensors."""
+    cell, impl the kernel formulation ("popcount" | "mxu" | "planes", or "*"
+    when the cell is formulation-agnostic). Where the cell runs follows from
+    the device of its tensors.
+
+    planes: the leading (MSB-first) plane count a plane-composed cell
+    contracts; None = the full stack. An execution choice, not part of the
+    registry key: the self-speculative draft runs the same cell over the
+    same weights with fewer planes."""
     wprec: str = "none"
     aprec: str = "none"
     impl: str = "popcount"
+    planes: int | None = None
+
+    def __post_init__(self):
+        if self.planes is not None and self.planes < 1:
+            raise ValueError(f"planes={self.planes!r}: need >= 1 or None")
 
     @property
     def key(self) -> tuple[str, str, str]:
@@ -56,7 +67,8 @@ class OperatingPoint:
 
     @property
     def tag(self) -> str:
-        return f"w{self.wprec[:4]}/a{self.aprec[:4]}/{self.impl}"
+        trunc = "" if self.planes is None else f":p{self.planes}"
+        return f"w{self.wprec[:4]}/a{self.aprec[:4]}/{self.impl}{trunc}"
 
     @classmethod
     def for_spec(cls, spec, *, impl: str = "popcount") -> "OperatingPoint":
@@ -91,20 +103,14 @@ def register(cell: GemmCell) -> GemmCell:
 
 
 def lookup(op: OperatingPoint) -> GemmCell:
-    """Resolve an operating point to its cell; impl falls back to '*'.
-    impl="planes" raises: the plane-composed cells (the reference's
-    kernels/pgemm.py) are not ported, and the '*' cell in their place would
-    hide that."""
-    if op.impl == "planes":
-        raise KeyError("impl='planes' (the plane-composed cells) is not yet "
-                       "ported to repro_torch")
+    """Resolve an operating point to its cell; impl falls back to '*'. An
+    unregistered key raises KeyError, as in the reference."""
     for k in (op.key, (op.wprec, op.aprec, "*")):
         if k in _REGISTRY:
             return _REGISTRY[k]
     raise KeyError(
-        f"no GEMM for (wprec={op.wprec!r}, aprec={op.aprec!r}, "
-        f"impl={op.impl!r}) in the PyTorch port: not yet ported (ported "
-        f"cells: {sorted(_REGISTRY)})")
+        f"no GEMM registered for (wprec={op.wprec!r}, aprec={op.aprec!r}, "
+        f"impl={op.impl!r}) (registered cells: {sorted(_REGISTRY)})")
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +222,15 @@ register(GemmCell(_op("ternary", "int8", "*"), ("w_mask", "w_sign"),
 register(GemmCell(_op("int4", "int8", "*"), ("w_q4",),
                   _prep_int8, i4gemm.INT4_W_I8A))
 
+# plane-composed cells: int4/int8 weights as stacked binary planes, composed
+# by coefficient inside the int32 accumulator — bit-exact vs the direct
+# cells above; the exact key wins in lookup, so a pair resolves to these
+# only when impl="planes" asks
+register(GemmCell(_op("int4", "int8", "planes"), ("w_planes",),
+                  _prep_int8, pgemm.PLANES_W4_I8A))
+register(GemmCell(_op("int8", "int8", "planes"), ("w_planes",),
+                  _prep_int8, pgemm.PLANES_W8_I8A))
+
 # weight-only and dense cells: bf16 activations, torch ops (no kernel body
 # in the reference either), narrow epilogue
 register(GemmCell(_op("binary", "none", "*"), ("w_packed",), _prep_bf16,
@@ -239,6 +254,35 @@ def cells() -> dict[tuple[str, str, str], GemmCell]:
 # the entry point
 # ---------------------------------------------------------------------------
 
+def _weight_ops(cell: GemmCell, op: OperatingPoint, p: dict) -> tuple:
+    """The cell's weight operands, with the operating point's plane
+    truncation (a leading MSB-first slice; the coefficients are positional,
+    so the slice needs no rescaling). planes on a cell without a stacked
+    leaf raises: running full precision instead would make a draft pass lie
+    about its cost."""
+    missing = [nm for nm in cell.weight_names if nm not in p]
+    if missing:
+        hint = (" (pack with transformer.pack_for_serve(..., plane_twins=True))"
+                if "w_planes" in missing else "")
+        raise KeyError(f"{cell.op.tag} needs packed weights {missing}{hint}")
+    w_ops = tuple(p[nm] for nm in cell.weight_names)
+    if op.planes is None:
+        return w_ops
+    if "w_planes" not in cell.weight_names:
+        raise ValueError(f"OperatingPoint planes={op.planes} needs a "
+                         f"plane-composed cell; {cell.key} has no stacked "
+                         f"w_planes leaf")
+    out = []
+    for nm, wv in zip(cell.weight_names, w_ops):
+        if nm == "w_planes":
+            if not 1 <= op.planes <= wv.shape[-3]:
+                raise ValueError(f"planes={op.planes} outside the stored stack "
+                                 f"depth {wv.shape[-3]} for {cell.key}")
+            wv = wv[..., :op.planes, :, :]
+        out.append(wv)
+    return tuple(out)
+
+
 def qgemm(p: dict, x: torch.Tensor, spec,
           op: OperatingPoint | None = None) -> torch.Tensor:
     """The serve-mode quantized GEMM: (..., K) -> (..., N) bf16.
@@ -258,7 +302,7 @@ def qgemm(p: dict, x: torch.Tensor, spec,
     lead = x.shape[:-1]
     x2d = x.reshape(-1, k)
     x_ops, a_scale = cell.prep(x2d, p, spec)
-    w_ops = tuple(p[nm] for nm in cell.weight_names)
+    w_ops = _weight_ops(cell, op, p)
     if cell.body is not None:
         y = harness.gemm(cell.body, x_ops, w_ops, p.get("w_scale"), a_scale,
                          p.get("b"), k=k)

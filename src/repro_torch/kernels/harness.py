@@ -18,14 +18,14 @@ import torch
 
 from .build import Kernel, load
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def gemm_kernel() -> Kernel:
     """A launcher of `repro_gemm` (csrc/gemm.cu) with its own launch count;
     each MacBody holds one, so launches are counted per body."""
     return Kernel("gemm", "repro_gemm",
-                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
+                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +60,8 @@ class MacBody:
     bit-plane words, 8 for s4 nibble words, 1 for int8 codes, so a mixed
     body (int8 codes x trit planes) blocks each side by its own density.
     w_kmajor: weights are (K, N) instead of (N, K/wk_per_q).
+    w_stack: the planes of a full plane-stacked weight (0: not stacked); its
+    operand is (P, N, K/wk_per_q) with 1 <= P <= w_stack live planes.
     plain(x_ops, w_ops, k) -> (M, N) int32 dot is the body's plain PyTorch
     version; kernel launches the CUDA instantiation and counts its
     launches."""
@@ -71,6 +73,7 @@ class MacBody:
     plain: Callable
     kernel: Kernel
     w_kmajor: bool = False
+    w_stack: int = 0
     xk_per_q: int | None = None
     wk_per_q: int | None = None
 
@@ -109,12 +112,18 @@ def _check(body: MacBody, x_ops, w_ops, k: int):
     if k % body.k_per_q or k % 4:
         raise ValueError(f"{body.name}: K={k} not a multiple of the storage unit")
     m = x_ops[0].shape[0]
-    n = w_ops[0].shape[1] if body.w_kmajor else w_ops[0].shape[0]
+    n = w_ops[0].shape[1] if body.w_kmajor or body.w_stack else w_ops[0].shape[0]
     for xo in x_ops:
         if tuple(xo.shape) != (m, k // body.xk):
             raise ValueError(f"{body.name}: activation operand {tuple(xo.shape)} "
                              f"!= {(m, k // body.xk)}")
     want_w = (k // body.wk, n) if body.w_kmajor else (n, k // body.wk)
+    if body.w_stack:
+        p = w_ops[0].shape[0] if w_ops[0].ndim == 3 else 0
+        if not 1 <= p <= body.w_stack:
+            raise ValueError(f"{body.name}: weight stack {tuple(w_ops[0].shape)} "
+                             f"needs 1..{body.w_stack} leading planes")
+        want_w = (p,) + want_w
     for wo in w_ops:
         if tuple(wo.shape) != want_w:
             raise ValueError(f"{body.name}: weight operand {tuple(wo.shape)} "
@@ -129,7 +138,10 @@ def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
     """Run `body` through the shared output-stationary GEMM.
 
     x_ops: n_x tensors (M, K/xk_per_q); w_ops: n_w tensors (N, K/wk_per_q),
-    or (K, N) when body.w_kmajor; packed words are int32, int8 codes int8.
+    or (K, N) when body.w_kmajor, or a (P, N, K/32) plane stack when
+    body.w_stack (a leading slice of a contiguous stack is contiguous; any
+    other stack is refused, never copied); packed words are int32, int8
+    codes int8.
     w_scale (N,) f32, a_scale (M,) f32, bias (N,) f32 or None
     -> (M, N) bf16. out="acc" returns the raw (M, N) int32 dot instead; the
     scales are then unused and may be None. Ragged M and N need no padding.
@@ -175,7 +187,11 @@ def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
     x1 = x_ops[1] if body.n_x > 1 else None
     w1 = w_ops[1] if body.n_w > 1 else None
     rq = out == "requant"
+    # a plane stack: its live planes and the words from one plane to the next
+    planes, stride = ((w_ops[0].shape[0], w_ops[0].stride(0)) if body.w_stack
+                      else (1, 0))
     body.kernel(body.body_id, ptr(x_ops[0]), ptr(x1), ptr(w_ops[0]), ptr(w1),
                 ptr(w_scale) if rq else None, ptr(a_scale) if rq else None,
-                ptr(bias) if rq else None, y.data_ptr(), int(not rq), m, n, k)
+                ptr(bias) if rq else None, y.data_ptr(), int(not rq), m, n, k,
+                planes, stride)
     return y

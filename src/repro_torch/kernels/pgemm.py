@@ -1,0 +1,47 @@
+"""Plane-composed MAC bodies — int4/int8 weights as shifted binary planes
+(counterpart of `repro.kernels.pgemm`, PLANES_W4_I8A / PLANES_W8_I8A).
+
+The weight is a stacked (P, N, K/32) tensor of MSB-first two's-complement
+binary planes (`core.pack.pack_planes`; plane 0 is the sign plane with
+coefficient -2^(b-1)), the activations (M, K) int8 codes. The live depth
+P <= b is the operand's leading axis: a leading slice `w_planes[:P]` with
+unchanged coefficients is the floor-truncated weight the self-speculative
+draft runs.
+
+The plain version follows the reference's `_planes_step`: unpack plane i to
+{0,1} int8, take its int32 dot with the activations, add coeff_i * dot. The
+CUDA body (`csrc/gemm.cu`, BODY_PLANES_W4/W8, storage format F_PLANES)
+composes the live plane words of each K word into int8 codes in shared
+memory and runs the __dp4a loop of the int8 body; both are integer sums, so
+they agree bit for bit, and at P = b they equal the direct int4/int8 cells.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import pack
+
+from .bgemm import unpacked_dot
+from .harness import MacBody, gemm_kernel
+
+
+def planes_plain(x_ops, w_ops, k: int, *, bits: int) -> torch.Tensor:
+    x, wp = x_ops[0], w_ops[0]                   # (M, K) int8, (P, N, K/32)
+    acc = torch.zeros((x.shape[0], wp.shape[1]), dtype=torch.int32, device=x.device)
+    for coeff, plane in zip(pack.plane_coeffs(bits), wp):
+        dot = unpacked_dot(x, lambda a, b, pl=plane: pack.unpack_bits(pl[a:b], k),
+                           wp.shape[1])
+        acc += coeff * dot
+    return acc
+
+
+def _mk(bits: int, name: str, body_id: int) -> MacBody:
+    return MacBody(name, body_id=body_id, n_x=1, n_w=1, k_per_q=pack.WORD,
+                   xk_per_q=1, wk_per_q=pack.WORD, w_stack=bits,
+                   plain=lambda x_ops, w_ops, k: planes_plain(x_ops, w_ops, k,
+                                                              bits=bits),
+                   kernel=gemm_kernel())
+
+
+PLANES_W4_I8A = _mk(4, "pgemm_w4a8_planes", 7)
+PLANES_W8_I8A = _mk(8, "pgemm_w8a8_planes", 8)

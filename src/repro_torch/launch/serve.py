@@ -5,10 +5,14 @@ a paged KV cache.
     PYTHONPATH=src python -m repro_torch.launch.serve      # llama3.2-3b, w-ternary
     PYTHONPATH=src python -m repro_torch.launch.serve --policy ternary --impl mxu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --policy binary
+    PYTHONPATH=src python -m repro_torch.launch.serve --policy w4a8 --impl planes
+    PYTHONPATH=src python -m repro_torch.launch.serve --policy int8 --spec-draft planes:1 --spec-k 4
 
 Every single-device precision policy of `core.precision.POLICIES` is
 served, with the binary/ternary GEMMs in either formulation (`--impl
-popcount|mxu`); prompts of any length up to `cache_len`.
+popcount|mxu`), the int4/int8 x int8 layers as stacked binary planes
+(`--impl planes`), and self-speculative decoding (`--spec-draft
+planes[:DEPTH] --spec-k K`); prompts of any length up to `cache_len`.
 
 What runs, as in the reference:
   * a fixed `slots` decode batch fed from a request FIFO; admission is
@@ -25,12 +29,16 @@ What runs, as in the reference:
   * sampling on the host (`models.common.sample_token`: greedy, or a
     temperature draw keyed by (seed, token index)); greedy ticks take the
     argmax on the device and move only (slots,) ids
-  * retirement at max_new, at EOS, or when the cache is full, freeing the
-    slot's pages
+  * retirement at max_new, at EOS (the output cut at the first EOS), or
+    when the cache is full, freeing the slot's pages
+  * with `spec_draft`, each tick instead drafts up to spec_k-1 tokens per
+    slot with the truncated-plane model, verifies them in one
+    full-precision multi-token step, and keeps the longest prefix that
+    matches what the full model samples: token-exact against sequential
+    decode (`_spec_step`)
 
-Not yet ported (asking for one raises): the plane-composed GEMM cells
-(`--impl planes`), prefix sharing and copy-on-write, preemption and swap,
-chunked prefill, speculative decoding, mesh serving, the contiguous-slab
+Not yet ported (asking for one raises): prefix sharing and copy-on-write,
+preemption and swap, chunked prefill, mesh serving, the contiguous-slab
 cache, and dispatch-ahead (the host schedules each tick after the previous
 one has landed).
 """
@@ -72,10 +80,19 @@ def default_buckets(lo: int, hi: int) -> tuple[int, ...]:
     return tuple(out) + (hi,)
 
 
+def _leaf_keys(tree) -> set:
+    if isinstance(tree, dict):
+        return set(tree) | {k for v in tree.values() for k in _leaf_keys(v)}
+    if isinstance(tree, (list, tuple)):
+        return {k for v in tree for k in _leaf_keys(v)}
+    return set()
+
+
 class Server:
     def __init__(self, cfg, params, *, slots: int = 4, cache_len: int = 256,
                  page_size: int = 32, num_pages: int | None = None,
-                 ctx: ModelCtx | None = None, device=None):
+                 ctx: ModelCtx | None = None, device=None,
+                 spec_draft: str | None = None, spec_k: int = 4):
         self.device = resolve_device(device)
         if params["embed"]["w"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
@@ -106,7 +123,50 @@ class Server:
         self.slot_pos = np.zeros(slots, np.int32)
         self.queue: list[Request] = []
         self.completed: list[Request] = []
-        self.stats = {"prefills": 0, "decode_ticks": 0, "peak_pages": 0}
+        self.stats = {"prefills": 0, "decode_ticks": 0, "peak_pages": 0,
+                      "spec_ticks": 0, "spec_proposed": 0, "spec_accepted": 0,
+                      "spec_emitted": 0}
+        self._init_spec(cfg, params, spec_draft, spec_k)
+
+    def _init_spec(self, cfg, params, spec_draft, spec_k):
+        """Self-speculative decoding: a truncated-bit-plane DRAFT over the
+        same packed weights and pages proposes spec_k-1 tokens per tick, one
+        full-precision multi-token VERIFY step checks them. Acceptance is an
+        exact match with what the full model samples, never a distribution
+        test, so the output is token-exact against sequential decode."""
+        self.spec = bool(spec_draft)
+        self.spec_k = int(spec_k)
+        self.spec_planes = 1
+        self.draft_ctx = None
+        if not self.spec:
+            return
+        kind, _, depth = spec_draft.partition(":")
+        if kind != "planes":
+            raise ValueError(f"unknown --spec-draft kind {kind!r} "
+                             "(only 'planes[:DEPTH]' exists)")
+        self.spec_planes = int(depth) if depth else 1
+        if self.spec_planes < 1:
+            raise ValueError("--spec-draft planes:DEPTH needs DEPTH >= 1")
+        if self.spec_k < 1:
+            raise ValueError("--spec-k must be >= 1")
+        if cfg.kv_cache_dtype == "int8":
+            # verify rides the chunk attention path, and the int8 KV requant
+            # is not byte-identical at chunk boundaries: decode sequentially
+            # (the reference also falls back for window/recurrent archs,
+            # which this server refuses outright)
+            self.spec = False
+            return
+        # layers in a direct int4/int8 layout need the plane twin for the
+        # draft to read; a policy without such layers drafts at full
+        # precision (operating_point's per-layer fallback): exact, accepted
+        leaves = _leaf_keys(params)
+        if {"w_q", "w_q4"} & leaves and "w_planes" not in leaves:
+            raise ValueError("--spec-draft needs the bit-plane weight twin; pack "
+                             "with transformer.pack_for_serve(..., plane_twins=True)")
+        # layers that resolve to a plane-composed cell contract to the
+        # leading spec_planes MSB planes; every other layer runs as usual
+        self.draft_ctx = dataclasses.replace(self.ctx, impl="planes",
+                                             draft_planes=self.spec_planes)
 
     # -- request lifecycle -----------------------------------------------------
 
@@ -196,16 +256,140 @@ class Server:
                 self.slot_req[s] = None
                 self.slot_pos[s] = 0
 
-    def _prepare_pages(self):
-        """Extend every running slot's coverage through this tick's write."""
+    def _prepare_pages(self, lookahead=None):
+        """Extend every running slot's coverage through this tick's writes:
+        [pos, pos+la), la = lookahead[slot] on a speculative tick (the draft
+        and the verify step both write the whole range), else 1. Every
+        position stays within the lifetime the admission reserved."""
         for s, req in enumerate(self.slot_req):
             if req is not None:
-                self.pt.extend(s, int(self.slot_pos[s]) + 1)
+                la = 1 if lookahead is None else int(lookahead.get(s, 1))
+                self.pt.extend(s, int(self.slot_pos[s]) + la)
+
+    def _masked_table(self, live) -> np.ndarray:
+        """The page table with every row but `live`'s on the scratch page."""
+        table = self.pt.table.copy()
+        idle = np.ones(self.slots, bool)
+        idle[list(live)] = False
+        table[idle] = NULL_PAGE
+        return table
+
+    def _pick(self, logits, reqs: dict, first: int = 0) -> np.ndarray:
+        """Token of every row of (slots, T, V) logits for the slots in
+        `reqs`: row t of slot s is token index len(out) + first + t. Greedy
+        picks take the argmax on the device (ties to the lowest index, as
+        sample_token's np.argmax) and move only the ids."""
+        if not any(r.temperature > 0 for r in reqs.values()):
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        rows = logits.cpu().numpy()
+        out = np.zeros(rows.shape[:2], np.int64)
+        for s, r in reqs.items():
+            for t in range(rows.shape[1]):
+                out[s, t] = sample_token(rows[s, t], r.temperature, r.seed,
+                                         len(r.out) + first + t)
+        return out
+
+    def _spec_step(self) -> bool:
+        """One self-speculative tick: DRAFT up to spec_k-1 tokens per slot
+        with the truncated-plane context, VERIFY them in one full-precision
+        multi-token step, accept the longest exactly-matching prefix plus
+        the first corrected token.
+
+        Every accepted token is sampled (the same stateless (seed, index)
+        draw) from verify logits computed over exactly the inputs the
+        sequential path would have fed: row t consumes [last token, draft_0
+        .. draft_{t-1}], and the accept loop reaches row t only when all
+        those drafts matched. The draft decides how many rows are usable,
+        never which tokens land.
+
+        The pools are written in place, so the draft's reduced-precision K/V
+        land in the real pool at [pos, pos+k_eff-1). Verify rewrites the
+        whole range [pos, pos+k_eff) with exact K/V, layer by layer, before
+        any of its reads, so no draft byte is ever read after this tick;
+        positions past the accepted point are overwritten by the next tick
+        before its reads reach them."""
+        self._admit()
+        self._retire()
+        # per-slot window: never past the request budget or the final cache
+        # slot (the _retire above leaves >= 1 for every running slot)
+        keff = {s: max(1, min(self.spec_k, r.max_new - len(r.out),
+                              self.cache_len - 1 - int(self.slot_pos[s])))
+                for s, r in enumerate(self.slot_req) if r is not None}
+        self._prepare_pages(lookahead=keff)
+        self.stats["peak_pages"] = max(self.stats["peak_pages"],
+                                       self.pt.usable_pages - self.pt.free_pages)
+        active = sorted(keff)
+        if active:
+            self._spec_tick(active, keff)
+        self._retire()   # cuts a mid-window EOS before retiring
+        return bool(self.queue or any(r is not None for r in self.slot_req))
+
+    def _spec_tick(self, active, keff) -> None:
+        dev = self.device
+        reqs = {s: self.slot_req[s] for s in active}
+        base = {s: int(self.slot_pos[s]) for s in active}
+        table = self._masked_table(active)
+        # -- draft: sequential truncated-plane decode steps over the slots
+        # still inside their window
+        drafts = {s: [] for s in active}
+        cur = {s: reqs[s].out[-1] for s in active}
+        for j in range(self.spec_k - 1):
+            live = [s for s in active if j < keff[s] - 1]
+            if not live:
+                break
+            tokens = np.zeros((self.slots, 1), np.int32)
+            pos = np.zeros(self.slots, np.int32)
+            for s in live:
+                tokens[s, 0] = cur[s]
+                pos[s] = base[s] + j
+            dlogits, self.cache = transformer.decode_step(
+                self.params, self.cache, torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(pos).to(dev), self.sp, self.draft_ctx,
+                pages=torch.from_numpy(self._masked_table(live)).to(dev))
+            picks = self._pick(dlogits, {s: reqs[s] for s in live}, first=j)
+            for s in live:
+                drafts[s].append(int(picks[s, 0]))
+                cur[s] = drafts[s][-1]
+        # -- verify: one chunk step over [last token, drafts...] per slot,
+        # writing exact K/V across the whole window before reading it
+        tokens = np.zeros((self.slots, self.spec_k), np.int32)
+        pos0 = np.zeros(self.slots, np.int32)
+        nreal = np.zeros(self.slots, np.int32)
+        for s in active:
+            row = [reqs[s].out[-1]] + drafts[s]
+            tokens[s, :len(row)] = row
+            pos0[s] = base[s]
+            nreal[s] = keff[s]
+        tab = torch.from_numpy(table).to(dev)
+        vlogits, self.cache = transformer.decode_verify(
+            self.params, self.cache, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(pos0).to(dev), self.sp, self.ctx, read_pages=tab,
+            write_pages=tab, nreal=torch.from_numpy(nreal).to(dev))
+        picks = self._pick(vlogits, reqs)
+        self.stats["spec_ticks"] += 1
+        for s in active:
+            r = reqs[s]
+            emitted, n_acc = [], 0
+            for t in range(keff[s]):
+                emitted.append(int(picks[s, t]))
+                if t < len(drafts[s]):
+                    if drafts[s][t] != emitted[-1]:
+                        break
+                    n_acc += 1
+            self.stats["spec_proposed"] += len(drafts[s])
+            self.stats["spec_accepted"] += n_acc
+            self.stats["spec_emitted"] += len(emitted)
+            r.out.extend(emitted)
+            # exact K/V now covers the inputs of the emitted rows; the last
+            # emitted token is fed at exactly this position next tick
+            self.slot_pos[s] = base[s] + len(emitted)
 
     def step(self) -> bool:
         """One server tick: admit -> retire -> page work -> one fused decode
         over every slot -> sample the landed tokens -> retire. Returns
-        whether work remains."""
+        whether work remains. A speculative server runs `_spec_step`."""
+        if self.spec:
+            return self._spec_step()
         self._admit()
         self._retire()
         self._prepare_pages()
@@ -220,10 +404,7 @@ class Server:
                 tokens[s, 0] = r.out[-1]
                 pos[s] = self.slot_pos[s]
             # rows of idle slots point at the scratch page only
-            table = self.pt.table.copy()
-            idle = np.ones(self.slots, bool)
-            idle[active] = False
-            table[idle] = NULL_PAGE
+            table = self._masked_table(active)
             dev = self.device
             logits, self.cache = transformer.decode_step(
                 self.params, self.cache, torch.from_numpy(tokens).to(dev),
@@ -232,16 +413,9 @@ class Server:
             self.stats["decode_ticks"] += 1
             for s in active:
                 self.slot_pos[s] += 1
-            if not any(r.temperature > 0 for r in reqs):
-                # argmax on the device; ties break to the lowest index, as
-                # sample_token's np.argmax does
-                nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
-                for s, r in zip(active, reqs):
-                    r.out.append(int(nxt[s]))
-            else:
-                rows = logits[:, 0].cpu().numpy()
-                for s, r in zip(active, reqs):
-                    r.out.append(self._sample(r, rows[s]))
+            nxt = self._pick(logits, dict(zip(active, reqs)))
+            for s, r in zip(active, reqs):
+                r.out.append(int(nxt[s, 0]))
         self._retire()
         return bool(self.queue or any(r is not None for r in self.slot_req))
 
@@ -256,12 +430,11 @@ class Server:
 #: precision policies whose every layer resolves to a ported GEMM cell
 PORTED_POLICIES = tuple(POLICIES)
 
-#: GEMM formulations (`--impl`) the port serves; the reference's "planes"
-#: (plane-composed int4/int8 cells) is not ported yet
-PORTED_IMPLS = ("popcount", "mxu")
+#: GEMM formulations (`--impl`) the port serves
+PORTED_IMPLS = ("popcount", "mxu", "planes")
 
 #: flags of reference features this port has not reached yet
-_NOT_PORTED = ("prefix_share", "preempt", "chunk_tokens", "spec_draft", "mesh",
+_NOT_PORTED = ("prefix_share", "preempt", "chunk_tokens", "mesh",
                "contiguous", "dispatch_ahead")
 
 
@@ -278,9 +451,10 @@ def _parser() -> argparse.ArgumentParser:
                          "policy of core.precision.POLICIES is ported")
     ap.add_argument("--impl", default="popcount",
                     choices=("popcount", "mxu", "planes"),
-                    help="binary/ternary GEMM formulation: popcount (XNOR / "
-                         "gated XNOR) or mxu (unpack + int8 dot); planes is "
-                         "not yet ported")
+                    help="GEMM formulation: popcount (XNOR / gated XNOR), "
+                         "mxu (unpack + int8 dot), or planes (int4/int8 x "
+                         "int8 layers as stacked binary planes; other layers "
+                         "run their default cell)")
     ap.add_argument("--page-size", type=int, default=32)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pool size; < slots*cache_len/page_size oversubscribes "
@@ -298,7 +472,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix-share", action="store_true")
     ap.add_argument("--preempt", action="store_true")
     ap.add_argument("--chunk-tokens", type=int, default=0)
-    ap.add_argument("--spec-draft", default=None)
+    ap.add_argument("--spec-draft", default=None, metavar="KIND[:DEPTH]",
+                    help="self-speculative decoding: 'planes[:DEPTH]' drafts "
+                         "with the leading DEPTH (default 1) bit-planes of "
+                         "the int4/int8 layers; token-exact vs sequential")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculation window: up to K-1 drafted tokens plus "
+                         "one verified token per tick")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--contiguous", action="store_true")
     ap.add_argument("--dispatch-ahead", action="store_true")
@@ -327,7 +507,8 @@ def main(argv=None):
                    impl=args.impl)
     gen = torch.Generator(device=device).manual_seed(0)
     params = transformer.init(cfg, gen, device)
-    sparams = transformer.pack_for_serve(params, cfg)
+    sparams = transformer.pack_for_serve(
+        params, cfg, plane_twins=args.spec_draft is not None or args.impl == "planes")
     train_b, serve_b = tree_nbytes(params), tree_nbytes(sparams)
     del params
     print(f"packed weights: {train_b / 2**20:.1f} MiB -> {serve_b / 2**20:.1f} MiB "
@@ -335,7 +516,10 @@ def main(argv=None):
           f"impl={args.impl})")
     srv = Server(cfg, sparams, slots=args.slots, cache_len=args.cache_len,
                  page_size=args.page_size, num_pages=args.num_pages, ctx=ctx,
-                 device=device)
+                 device=device, spec_draft=args.spec_draft, spec_k=args.spec_k)
+    if args.spec_draft and not srv.spec:
+        print(f"--spec-draft {args.spec_draft}: this configuration cannot verify "
+              f"exactly (int8 KV pool); decoding sequentially")
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab,
@@ -354,6 +538,10 @@ def main(argv=None):
     print(f"served {len(srv.completed)} requests, {total_new} tokens, "
           f"{ticks} ticks ({st['decode_ticks']} decode, {st['prefills']} "
           f"prefills), {dt:.3f}s ({total_new / dt:.1f} tok/s on {where})")
+    if srv.spec:
+        print(f"speculative: {st['spec_ticks']} ticks, {st['spec_proposed']} "
+              f"drafted, {st['spec_accepted']} accepted, {st['spec_emitted']} "
+              f"emitted (--spec-draft {args.spec_draft}, --spec-k {srv.spec_k})")
     print(f"page pool: {srv.pt.usable_pages} usable pages x "
           f"{srv.pt.page_size} tokens, peak {st['peak_pages']} live, "
           f"{srv.pt.free_pages} free at exit")

@@ -4,9 +4,10 @@ takes its Pallas kernel, else blockwise in plain torch), and one-token
 decode over the paged KV pool through the paged flash-decode kernel.
 
 Layouts follow the reference: q (B, T, H, dh), k/v (B, T, Hk, dh); query
-head h reads kv head h // G. Sliding-window (`local`) layers, the
-contiguous-slab decode cache, chunked prefill and cross-attention are not
-ported yet.
+head h reads kv head h // G. `attn_prefill_chunk` runs a multi-token range
+against the paged pool; it backs the speculative verify step. Sliding-window
+(`local`) layers, the contiguous-slab decode cache, chunked-prefill
+scheduling and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -206,4 +207,66 @@ def attn_decode(p, x, cache, pos, specs: AttnSpecs, cfg: ArchConfig,
                                       pages.to(torch.int32).contiguous(),
                                       posb.contiguous(), kv_scale=KV_SCALE)
     out = common.linear_apply(p["out"], o.reshape(b, 1, h * dh), specs.out, ctx)
+    return out, {"k": k, "v": v}
+
+
+def attn_prefill_chunk(p, x, cache, pos0, specs: AttnSpecs, cfg: ArchConfig,
+                       ctx: ModelCtx, *, read_pages, write_pages, nreal):
+    """A multi-token chunk against the paged pool at a position offset.
+
+    x: (B, C, D), right-padded past `nreal` (B,); pos0: (B,) absolute
+    position of each row's first token; read_pages / write_pages: (B,
+    max_pages) page rows. Token t sits at position pos0+t: its K/V are
+    written IN PLACE to write_pages[(pos0+t)//P] offset (pos0+t)%P (padding
+    rows t >= nreal go to the scratch page), for every valid row before any
+    read, and its query attends every pooled token at position <= pos0+t.
+
+    How a row reads: on the CPU, the reference's f32 algebra (gather the
+    read rows, mask, one softmax over the chunk); on the card, through the
+    paged flash-decode kernel over B*C virtual rows, row (b, t) repeating
+    slot b's page row at position pos0[b]+t, so that each row reads exactly
+    as a sequential decode step at that position does (a padding row reads
+    at its slot's last valid position and is ignored)."""
+    b, c, _ = x.shape
+    dev = x.device
+    y = common.linear_apply(p["qkv"], x, specs.qkv, ctx)
+    q, k_new, v_new = _split_qkv(y, cfg)
+    pos0 = torch.as_tensor(pos0, dtype=torch.int32, device=dev).reshape(b)
+    nreal = torch.as_tensor(nreal, dtype=torch.int32, device=dev).reshape(b)
+    tt = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+    positions = pos0[:, None] + tt                                    # (B, C)
+    q = common.rope(q, positions, cfg.rope_theta)
+    k_new = common.rope(k_new, positions, cfg.rope_theta)
+
+    k, v = cache["k"], cache["v"]
+    page_size = k.shape[1]
+    rows = torch.arange(b, device=dev)[:, None]
+    pidx = torch.clamp(positions // page_size, max=write_pages.shape[1] - 1).long()
+    pid = torch.where(tt < nreal[:, None], write_pages.long()[rows, pidx], 0)
+    off = (positions % page_size).long()
+    k[pid, off] = _kv_quant(k_new, k.dtype)
+    v[pid, off] = _kv_quant(v_new, v.dtype)
+
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if dev.type == "cuda":
+        last = torch.clamp(nreal - 1, min=0)[:, None]
+        vpos = (pos0[:, None] + torch.minimum(tt, last)).reshape(-1)
+        vpages = read_pages.to(torch.int32).repeat_interleave(c, dim=0)
+        o = paged_attn.paged_flash_decode(q.reshape(b * c, h, dh).contiguous(), k, v,
+                                          vpages.contiguous(), vpos.contiguous(),
+                                          kv_scale=KV_SCALE)
+        o = o.reshape(b, c, h * dh)
+    else:
+        s = read_pages.shape[1] * page_size
+        rp = read_pages.long()
+        kf = paged_attn.kv_dequant(k[rp].reshape(b, s, hk, dh), x.dtype, KV_SCALE)
+        vf = paged_attn.kv_dequant(v[rp].reshape(b, s, hk, dh), x.dtype, KV_SCALE)
+        valid = (torch.arange(s, device=dev)[None, None, :]
+                 <= positions[:, :, None])                             # (B, C, S)
+        qg = q.reshape(b, c, hk, h // hk, dh)
+        sc = torch.einsum("bthgd,bshd->bhgts", qg, kf).to(torch.float32) / dh ** 0.5
+        sc = torch.where(valid[:, None, None], sc, _neg_inf(sc))
+        a = torch.softmax(sc, dim=-1).to(x.dtype)
+        o = torch.einsum("bhgts,bshd->bthgd", a, vf).reshape(b, c, h * dh)
+    out = common.linear_apply(p["out"], o, specs.out, ctx)
     return out, {"k": k, "v": v}

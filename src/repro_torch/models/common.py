@@ -23,12 +23,15 @@ from repro_torch.core.quantize import row_mean
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
     """Execution context threaded through every block. Of the reference's
-    fields the port has the compute dtype and `impl`, the binary/ternary
-    GEMM formulation ("popcount" | "mxu"; "planes" is not yet ported). Only
-    the serve mode is ported, and where a GEMM runs follows from the device
-    of its tensors."""
+    fields the port has the compute dtype, `impl`, the GEMM formulation
+    ("popcount" | "mxu" | "planes"; a pair without a cell of that
+    formulation runs its default cell), and `draft_planes`, the leading
+    plane count the self-speculative draft's plane-composed layers contract
+    (None = full precision). Only the serve mode is ported, and where a
+    GEMM runs follows from the device of its tensors."""
     dtype: torch.dtype = torch.bfloat16
     impl: str = "popcount"
+    draft_planes: int | None = None
 
 
 # -- linear helper ------------------------------------------------------------
@@ -42,9 +45,25 @@ def lspec(pol: PrecisionPolicy, layer_class: str, in_dim: int, out_dim: int, *,
 
 def operating_point(spec: QLinearSpec, ctx: ModelCtx):
     """This layer's `dispatch.OperatingPoint`: the precisions of the layer's
-    policy assignment, the formulation from the context."""
-    from repro_torch.kernels.dispatch import OperatingPoint
-    return OperatingPoint.for_spec(spec, impl=ctx.impl)
+    policy assignment, the formulation from the context.
+
+    As in the reference, a formulation only some pairs have (impl="planes"
+    exists for int4/int8 x int8 only) resolves per layer: a pair without it
+    runs its popcount (or formulation-agnostic) cell, so one `--impl planes`
+    serves a heterogeneous policy. A draft context truncates every
+    plane-composed layer to min(draft_planes, its bits) planes."""
+    from repro_torch.core import pack
+    from repro_torch.kernels import dispatch
+    op = dispatch.OperatingPoint.for_spec(spec, impl=ctx.impl)
+    try:
+        cell = dispatch.lookup(op)
+    except KeyError:
+        op = dataclasses.replace(op, impl="popcount")
+        cell = dispatch.lookup(op)
+    if ctx.draft_planes is not None and "w_planes" in cell.weight_names:
+        op = dataclasses.replace(
+            op, planes=min(ctx.draft_planes, pack.PLANE_BITS[op.wprec]))
+    return op
 
 
 def linear_apply(p, x, spec: QLinearSpec, ctx: ModelCtx):

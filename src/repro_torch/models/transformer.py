@@ -11,7 +11,8 @@ Params (serve layout, `pack_for_serve`):
     {"embed": {"w"}, "blocks": [block, ...], "final_norm": {"scale"},
      "lm_head": packed qlinear}
 Cache (`init_cache`): a list with one {"k", "v"} pool dict per layer.
-Only the `attn` block kind is ported.
+Only the `attn` block kind is ported. `decode_verify` runs a multi-token
+range through the chunk path (the speculative verify step).
 """
 from __future__ import annotations
 
@@ -109,16 +110,31 @@ def block_pack(p, bs: BlockSpecs):
     return out
 
 
-def pack_for_serve(params: dict, cfg: ArchConfig) -> dict:
+def _strip_plane_twins(t):
+    if isinstance(t, dict):
+        return {k: _strip_plane_twins(v) for k, v in t.items() if k != "w_planes"}
+    if isinstance(t, list):
+        return [_strip_plane_twins(v) for v in t]
+    return t
+
+
+def pack_for_serve(params: dict, cfg: ArchConfig, *,
+                   plane_twins: bool = False) -> dict:
     """Convert train-layout params to the packed serve layout (bit-planes /
-    int8 codes). The embedding stays wide (bf16, ALWAYS_WIDE)."""
+    int8 codes). The embedding stays wide (bf16, ALWAYS_WIDE).
+
+    `plane_twins=True` keeps the stacked bit-plane twin (`w_planes`) that
+    `qlinear.pack_params` emits beside the direct int4/int8 layout: the
+    `impl="planes"` cells and the `--spec-draft` draft read it. The default
+    strips it, since it duplicates those layers' weight bytes."""
     sp = build_specs(cfg)
-    return {
+    out = {
         "embed": {"w": params["embed"]["w"].to(torch.bfloat16)},
         "blocks": [block_pack(p, bs) for p, bs in zip(params["blocks"], sp.blocks)],
         "final_norm": params["final_norm"],
         "lm_head": qlinear.pack_params(params["lm_head"], sp.lm_head),
     }
+    return out if plane_twins else _strip_plane_twins(out)
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +163,19 @@ def block_decode(p, x, cache, pos, bs: BlockSpecs, cfg: ArchConfig,
     h = common.norm_apply(p["norm1"], x, cfg.norm)
     m, cache = attention.attn_decode(p["mixer"], h, cache, pos, bs.mixer, cfg,
                                      ctx, pages=pages)
+    return _ffn_residual(p, x + m, bs, cfg, ctx), cache
+
+
+def block_chunk(p, x, cache, pos0, bs: BlockSpecs, cfg: ArchConfig,
+                ctx: ModelCtx, *, read_pages, write_pages, nreal):
+    """A multi-token chunk through one block. x: (B, C, D); pos0: (B,).
+    Only full-attention blocks have a pageable partial prefix."""
+    if bs.kind != "attn":
+        raise ValueError(f"a chunk needs attn blocks, got {bs.kind}")
+    h = common.norm_apply(p["norm1"], x, cfg.norm)
+    m, cache = attention.attn_prefill_chunk(
+        p["mixer"], h, cache, pos0, bs.mixer, cfg, ctx, read_pages=read_pages,
+        write_pages=write_pages, nreal=nreal)
     return _ffn_residual(p, x + m, bs, cfg, ctx), cache
 
 
@@ -190,6 +219,33 @@ def decode_step(params, cache, tokens, pos, sp: ModelSpecs, ctx: ModelCtx, *,
     for p, bs, c in zip(params["blocks"], sp.blocks, cache):
         x, c = block_decode(p, x, c, pos, bs, cfg, ctx, pages=pages)
         new_cache.append(c)
+    return _logits(params, x, sp, ctx), new_cache
+
+
+def _chunk_stack(params, cache, tokens, pos0, sp: ModelSpecs, ctx: ModelCtx, kw):
+    """Embed `tokens` (B, C) and run the chunk path through every block;
+    returns (hidden (B, C, D), cache)."""
+    cfg = sp.cfg
+    x = common.embed_apply(params["embed"], tokens, ctx.dtype)
+    new_cache = []
+    for p, bs, c in zip(params["blocks"], sp.blocks, cache):
+        x, c = block_chunk(p, x, c, pos0, bs, cfg, ctx, **kw)
+        new_cache.append(c)
+    return x, new_cache
+
+
+def decode_verify(params, cache, tokens, pos0, sp: ModelSpecs, ctx: ModelCtx, *,
+                  read_pages, write_pages, nreal):
+    """The full-precision multi-token verify step of self-speculative decoding.
+
+    tokens: (B, K), row b = [last accepted token, draft_0, .., draft_{K-2}]
+    at positions pos0[b] .. pos0[b]+K-1, right-padded past nreal[b]. The
+    chunk path writes exact K/V over the whole range (in place, overwriting
+    whatever the draft wrote there) before any read, and logits come back
+    for EVERY row (B, K, V): row t is what a sequential `decode_step` gives
+    at position pos0+t after consuming tokens[:, :t+1]."""
+    kw = dict(read_pages=read_pages, write_pages=write_pages, nreal=nreal)
+    x, new_cache = _chunk_stack(params, cache, tokens, pos0, sp, ctx, kw)
     return _logits(params, x, sp, ctx), new_cache
 
 

@@ -181,9 +181,9 @@ def test_pack_params_match(prec, in_dim, out_dim, bias):
                                  use_bias=bias)
     want = jqlinear.pack_params({k: jnp.asarray(v) for k, v in p.items()}, jspec)
     got = tqlinear.pack_params({k: torch.from_numpy(v) for k, v in p.items()}, tspec)
-    # the stacked plane twin feeds only the plane-composed cells
-    # (impl="planes"), which are not ported: the port does not produce it
-    want.pop("w_planes", None)
+    # int4/int8 weights with int8 activations carry the stacked plane twin
+    # (w_planes, int32 words with the reference's uint32 bits)
+    assert ("w_planes" in want) == (prec in ("int8", "w4a8"))
     assert sorted(got) == sorted(want)
     wprec = jprecision.POLICIES[prec].body.weights.precision
     for name, j in want.items():

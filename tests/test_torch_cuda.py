@@ -8,6 +8,9 @@ imports no JAX, so it runs on a machine that has only torch:
 Bars: the GEMM kernel's int32 accumulator and bf16 requant output are
 bit-equal to the plain version for every MAC body (ragged M and N, with and
 without bias), and the mxu bodies' accumulators equal the popcount bodies';
+the plane bodies (K10) are bit-equal to their plain version at every
+truncation depth P in {1, 2, bits}, and at P = bits to the direct int8 and
+int4 bodies on the composed codes;
 paged decode is within rtol=atol=2e-5 of the plain version for f32 queries
 (the bar of tests/test_paged_attn.py: the same algebra summed in another
 order) and 2e-2 for bf16 (the plain version rounds scores, probabilities
@@ -17,7 +20,10 @@ tests/test_flash_attn.py (f32 2e-4, bf16 3e-2: the same algebra summed in
 another order, so bf16 outputs may differ by a rounding step); a reduced
 model served through the kernels gives a 4-slot server the tokens of a
 1-slot server under every policy, with a bf16 or an int8 KV pool, and the
-mxu formulation gives the popcount formulation's tokens.
+mxu formulation gives the popcount formulation's tokens; `--impl planes`
+gives the direct cells' tokens, speculative decoding gives sequential
+decoding's tokens, and a verify row's logits are bit-equal to the
+sequential decode step's at the same position.
 """
 import dataclasses
 
@@ -27,7 +33,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.precision import POLICIES
-from repro_torch.kernels import BODIES, bgemm, flash_attn, harness, paged_attn, tgemm
+from repro_torch.core import pack
+from repro_torch.kernels import (BODIES, bgemm, flash_attn, harness, i4gemm, i8gemm,
+                                 paged_attn, pgemm, tgemm)
 
 
 @pytest.fixture
@@ -51,6 +59,8 @@ def _side(shape_units, per_unit, n_ops, gen):
 def _operands(body, m, n, k, gen):
     x = _side((m, k // body.xk), body.xk, body.n_x, gen)
     w_shape = (k // body.wk, n) if body.w_kmajor else (n, k // body.wk)
+    if body.w_stack:
+        w_shape = (body.w_stack,) + w_shape
     w = _side(w_shape, body.wk, body.n_w, gen)
     scales = (torch.rand(n, generator=gen) * 0.1 + 1e-3,
               torch.rand(m, generator=gen) + 0.1, torch.randn(n, generator=gen))
@@ -87,6 +97,37 @@ def test_mxu_kernel_equals_popcount_kernel(cuda, mxu, popcount, m, k, n):
     a = harness.gemm(mxu, dev(x), dev(w), None, None, k=k, out="acc")
     b = harness.gemm(popcount, dev(x), dev(w), None, None, k=k, out="acc")
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 128, 96), (5, 256, 100), (33, 3072, 200)])
+@pytest.mark.parametrize("body,direct", [(pgemm.PLANES_W4_I8A, i4gemm.INT4_W_I8A),
+                                         (pgemm.PLANES_W8_I8A, i8gemm.I8_DOT)],
+                         ids=["w4", "w8"])
+def test_plane_kernel_truncations_and_direct(cuda, body, direct, m, k, n):
+    gen = torch.Generator().manual_seed(m + k + n)
+    x, w, (ws, as_, b) = _operands(body, m, n, k, gen)
+    bits = body.w_stack
+    dev = lambda ts: tuple(t.to(cuda) for t in ts)
+    for p in (1, 2, bits):
+        wp = (w[0][:p],)
+        acc = harness.gemm(body, dev(x), dev(wp), None, None, k=k, out="acc")
+        assert torch.equal(acc.cpu(), harness.gemm(body, x, wp, None, None, k=k,
+                                                   out="acc")), p
+        for bias in (None, b):
+            got = harness.gemm(body, dev(x), dev(wp), ws.to(cuda), as_.to(cuda),
+                               None if bias is None else bias.to(cuda), k=k)
+            want = harness.gemm(body, x, wp, ws, as_, bias, k=k)
+            assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16)), p
+    codes = pack.unpack_planes_i8(w[0], k, bits)               # (N, K)
+    wd = codes.T.contiguous() if direct.w_kmajor else pack.pack_int4(codes)
+    want = harness.gemm(direct, dev(x), (wd.to(cuda),), None, None, k=k, out="acc")
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want)
+    # a strided stack is refused, not copied
+    strided = torch.zeros((2 * bits, n, k // 32), dtype=torch.int32, device=cuda)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        harness.gemm(body, dev(x), (strided,), None, None, k=k, out="acc")
 
 
 @pytest.mark.cuda
@@ -147,21 +188,25 @@ def test_paged_kernel_matches_plain(cuda, dtype, int8, tol, hq, hk, dh):
 
 
 def _reduced_serve(cuda, policy, slots, *, impl="popcount", kv="bfloat16",
-                   lens=(3, 9, 14, 5, 30, 1), n_layers=4, cache_len=64):
+                   lens=(3, 9, 14, 5, 30, 1), n_layers=4, cache_len=64,
+                   spec_draft=None, spec_k=4):
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import transformer
     from repro_torch.models.common import ModelCtx
     cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), policy=policy,
                               n_layers=n_layers, kv_cache_dtype=kv)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    sp = transformer.pack_for_serve(transformer.init(cfg, gen, cuda), cfg)
+    sp = transformer.pack_for_serve(transformer.init(cfg, gen, cuda), cfg,
+                                    plane_twins=impl == "planes" or bool(spec_draft))
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
     srv = Server(cfg, sp, slots=slots, cache_len=cache_len, page_size=8,
-                 ctx=ModelCtx(impl=impl), device=cuda)
+                 ctx=ModelCtx(impl=impl), device=cuda, spec_draft=spec_draft,
+                 spec_k=spec_k)
     for i, p in enumerate(prompts):
         srv.submit(Request(i, p, 8, seed=i))
     srv.run()
+    assert srv.spec == bool(spec_draft)
     return {r.rid: r.out for r in srv.completed}
 
 
@@ -185,3 +230,59 @@ def test_reduced_serve_int8_kv_and_long_prompt_on_card(cuda, policy):
     the flash-attention kernel (bucket 256), batched == sequential."""
     kw = dict(kv="int8", lens=(3, 200, 9, 150, 140), n_layers=2, cache_len=256)
     assert _reduced_serve(cuda, policy, 4, **kw) == _reduced_serve(cuda, policy, 1, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["int8", "w4a8", "het"])
+def test_reduced_serve_planes_equals_direct_on_card(cuda, policy):
+    planes = _reduced_serve(cuda, policy, 4, impl="planes")
+    assert planes == _reduced_serve(cuda, policy, 4)
+    assert planes == _reduced_serve(cuda, policy, 1, impl="planes")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["planes:1", "planes:8"])
+@pytest.mark.parametrize("policy", ["int8", "w4a8", "binary"])
+def test_reduced_serve_spec_equals_sequential_on_card(cuda, policy, draft):
+    assert (_reduced_serve(cuda, policy, 4, spec_draft=draft, spec_k=4)
+            == _reduced_serve(cuda, policy, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["int8", "ternary"])
+def test_verify_rows_equal_decode_steps_on_card(cuda, policy):
+    """Each verify row reads attention through the paged-decode kernel, as
+    a sequential decode step does, so on the card its logits are bit-equal
+    to the decode step's at the same position (bf16 compute)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), policy=policy,
+                              n_layers=4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = transformer.pack_for_serve(transformer.init(cfg, gen, cuda), cfg)
+    sp = transformer.build_specs(cfg)
+    ctx = ModelCtx()
+    b, page, max_pages, kwin = 3, 8, 8, 4
+    pages = (1 + torch.arange(b * max_pages, dtype=torch.int32, device=cuda)
+             ).reshape(b, max_pages)
+    pool = transformer.init_cache(cfg, 1 + b * max_pages, page, kv_dtype=torch.bfloat16,
+                                  device=cuda)
+    rng = np.random.default_rng(4)
+    pos0 = torch.tensor([5, 17, 30], dtype=torch.int32, device=cuda)
+    # fill the pool below pos0 with K/V written by sequential decode steps
+    for t in range(int(pos0.max())):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32))
+        transformer.decode_step(params, pool, tok.to(cuda),
+                                torch.minimum(torch.full_like(pos0, t), pos0 - 1),
+                                sp, ctx, pages=pages)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, kwin)).astype(np.int32)).to(cuda)
+    nreal = torch.tensor([4, 2, 3], dtype=torch.int32, device=cuda)
+    vpool = [{k: v.clone() for k, v in c.items()} for c in pool]
+    vl, _ = transformer.decode_verify(params, vpool, toks, pos0, sp, ctx,
+                                      read_pages=pages, write_pages=pages, nreal=nreal)
+    for t in range(kwin):
+        dl, pool = transformer.decode_step(params, pool, toks[:, t:t + 1], pos0 + t,
+                                           sp, ctx, pages=pages)
+        for r in range(b):
+            if t < int(nreal[r]):
+                assert torch.equal(vl[r, t], dl[r, 0]), (r, t)

@@ -230,8 +230,16 @@ def test_w4a8_oracle(m, k, n):
 
 
 def test_unported_cell_and_device_raise():
-    with pytest.raises(KeyError, match="not yet ported"):
-        tdispatch.lookup(tdispatch.OperatingPoint("int8", "int8", "planes"))
+    """A key neither package registers raises KeyError on both sides (the
+    plane cells are registered now); a tensor on an unsupported device
+    raises in the wrapper."""
+    for key in (("binary", "int8", "popcount"), ("int4", "ternary", "planes")):
+        with pytest.raises(KeyError):
+            jdispatch.lookup(jdispatch.OperatingPoint(*key))
+        with pytest.raises(KeyError, match="no GEMM registered"):
+            tdispatch.lookup(tdispatch.OperatingPoint(*key))
+    assert (tdispatch.lookup(tdispatch.OperatingPoint("int8", "int8", "planes")).key
+            == ("int8", "int8", "planes"))
     _, t = _setup_cell(CELLS[0], 4, 64, 32, False, seed=0)
     meta = tuple(o.to("meta") for o in t["x_ops"])
     with pytest.raises(ValueError, match="unsupported device"):

@@ -8,7 +8,8 @@ carried over through numpy by `repro_torch.bridge`. Bars:
     takes the flash-attention route (bucket 256);
   * the mxu formulation's tokens equal the popcount formulation's;
   * the port's batched server equals its one-slot (sequential) server;
-  * EOS retirement, and the CLI's refusal of unported features.
+  * EOS retirement, the CLI's refusal of unported features, and that it
+    serves `--impl planes` and `--spec-draft`.
 """
 import dataclasses
 import functools
@@ -127,10 +128,17 @@ def test_eos_retires_and_frees_pages():
 
 def test_cli_refuses_unported_features_and_missing_card():
     for flag in (["--prefix-share"], ["--preempt"], ["--chunk-tokens", "8"],
-                 ["--spec-draft", "planes:1"], ["--mesh", "1,2"],
-                 ["--contiguous"], ["--dispatch-ahead"], ["--impl", "planes"]):
+                 ["--mesh", "1,2"], ["--contiguous"], ["--dispatch-ahead"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             tserve.main(["--reduced", "--device", "cpu", *flag])
+    # the plane cells and self-speculative decoding serve
+    for flags in (["--policy", "w4a8", "--impl", "planes"],
+                  ["--policy", "int8", "--spec-draft", "planes:1"]):
+        srv = tserve.main(["--reduced", "--device", "cpu", "--requests", "2",
+                           "--max-new", "3", *flags])
+        assert sorted(len(r.out) for r in srv.completed) == [3, 3]
+        assert srv.spec == ("--spec-draft" in flags)
+        assert srv.ctx.impl == ("planes" if "--impl" in flags else "popcount")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.main(["--reduced"])
