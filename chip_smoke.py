@@ -17,8 +17,12 @@ Phases:
                stacks) at P = 1, 2 and bits live planes (bit-equal, and at P
                = bits equal to the direct int8 / int4 bodies' accumulators
                on the composed codes), paged decode (bf16 and int8 pools,
-               within 2e-2), flash attention (T = 256, bf16, within 3e-2);
-               with kernel, plain and library times and the bound of each
+               within 2e-2), flash attention (T = 256, bf16, within 3e-2),
+               and the grouped GEMM (K11) at the full-width expert shapes of
+               deepseek-moe-16b (G = 64) and phi3.5-moe-42b-a6.6b (G = 16),
+               M = 16 and 128 rows per expert, K9 and K1 bodies (bit-equal
+               to the plain version and to G ungrouped launches); with
+               kernel, plain and library times and the bound of each
   4. serve   — full-width, 28-layer llama3.2-3b from the port's seeded init,
                8 requests through the paged continuous-batching server:
                binary, ternary and int8 on the serve CLI's 4..16-token
@@ -40,14 +44,26 @@ Phases:
                counts; then one profiled 4-slot decode tick for binary,
                ternary, int8, het, w-ternary and int8 under planes (wall
                time, device busy time, top kernels)
-  5. summary — one line per kernel, then one JSON line of kernel records:
+  5. moe     — MoE serving, 8 requests on the serve CLI's prompts, from the
+               port's seeded init packed block by block: deepseek-moe-16b at
+               full width and depth under het and int8, phi3.5-moe at full
+               width and 4 layers under het (84 GB of bf16 layers at full
+               depth), deepseek under w-ternary (weight-only experts, no
+               K11) at 4 layers; 4-slot tokens == 1-slot tokens, the routing
+               counters (moe_routed == sum(moe_expert_tokens) +
+               moe_dropped), and the GEMM launches exactly one per layer per
+               forward call, one K11 launch per expert projection; then one
+               profiled 4-slot decode tick of deepseek het
+  6. launches — every kernel was launched on the serve path
+  7. summary — one line per kernel, then one JSON line of kernel records:
                ms, plain_ms, bound_ms and library_ms are per decode tick of
                the serve path for a GEMM body (4 slots, the layers that run
                it: 28 x {qkv, out, up, down} + lm_head for a whole-model body,
                het's layers for the mixed bodies, w4a8's 26 body layers for
                the int4 plane body), 28 launches for paged
-               decode, and per 256-token prefill (28 layers) for flash
-               attention
+               decode, per 256-token prefill (28 layers) for flash
+               attention, and per 4-slot deepseek-moe-16b het decode tick
+               (28 x {up, down} expert stacks, K9 body) for K11
 The last line is {"ok": true, "device": {...}} only when every phase passed;
 any failure exits non-zero. Without a CUDA device, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -96,6 +112,10 @@ LONG_BUCKET = 256            # the 129..224-token prompts land here
 PAGED_POS = (1, 77, 160, 255)  # 4 slots, positions spread over 1..255
 
 _GEMM = "src/repro/kernels/harness.py:240 (gemm, {} body {})"
+MOE_ARCHS = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b")
+#: rows per expert of the grouped GEMM: a 4-slot decode tick (4 slots x
+#: capacity 4) and a prefill-sized slab
+GROUPED_ROWS = (16, 128)
 REPLACES = {
     "i8gemm": _GEMM.format("I8_DOT", "i8gemm.py:18"),
     "bgemm_popcount": _GEMM.format("BINARY_POPCOUNT", "bgemm.py:29"),
@@ -109,10 +129,13 @@ REPLACES = {
     "paged_flash_decode": "src/repro/kernels/paged_attn.py:205 (paged_flash_decode)",
     "flash_attention": "src/repro/kernels/flash_attn.py:86 (flash_attention, "
                        "_flash_kernel :31)",
+    "gemm_grouped": "src/repro/kernels/harness.py:257 (gemm_grouped; on one "
+                    "device the expert vmap of dispatch.py:927-931)",
 }
 SOURCE = {name: "src/repro_torch/kernels/csrc/gemm.cu" for name in REPLACES}
 SOURCE["paged_flash_decode"] = "src/repro_torch/kernels/csrc/paged_attn.cu"
 SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attn.cu"
+ATTENTION_KERNELS = ("paged_flash_decode", "flash_attention")
 #: mxu body -> the popcount body whose accumulator it must equal
 MXU_TWIN = {"bgemm_mxu": "bgemm_popcount", "tgemm_mxu": "tgemm_popcount"}
 #: layers of one decode tick that run each mixed body (het's assignment)
@@ -298,6 +321,109 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
     return {"name": body.name, "max_abs_err": 0.0, "ms": tick["ms"],
             "plain_ms": tick["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def moe_gemm_shapes(cfg):
+    """(name, G, N, K) of an MoE arch's two expert projections."""
+    up = 2 * cfg.d_ff if cfg.gated_ffn else cfg.d_ff
+    return [("up", cfg.n_experts, up, cfg.d_model),
+            ("down", cfg.n_experts, cfg.d_model, cfg.d_ff)]
+
+
+def grouped_plain(body, x_ops, w_ops, ws, as_, bias, k, out="requant"):
+    """The plain version of the grouped GEMM, member by member, on the
+    card: the body's plain dot, then `harness.requant`."""
+    from repro_torch.kernels import harness
+    ys = []
+    for i in range(x_ops[0].shape[0]):
+        dot = body.plain([t[i] for t in x_ops], [t[i] for t in w_ops], k)
+        ys.append(dot if out == "acc" else harness.requant(
+            dot, ws[i], as_[i], None if bias is None else bias[i]).to(torch.bfloat16))
+    return torch.stack(ys)
+
+
+def check_grouped(flush, gen) -> dict:
+    """K11 vs its plain version and vs G ungrouped launches of the same
+    body, at the full-width expert shapes of deepseek-moe-16b and
+    phi3.5-moe-42b-a6.6b, at M = 16 and 128 rows per expert, under the K9
+    (het's experts) and K1 (int8's experts) bodies: int32 accumulator and
+    bf16 output (bias on and off) bit-equal. Returns the record of a
+    4-slot deepseek-moe-16b het decode tick: 28 layers x {up, down} at M =
+    16 under K9, one launch each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import harness, i4gemm, i8gemm
+    tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        for name, g, n, k in moe_gemm_shapes(cfg):
+            for body in (i4gemm.INT4_W_I8A, i8gemm.I8_DOT):
+                for m in GROUPED_ROWS:
+                    gen.manual_seed(3000 * m + g + n + body.body_id)
+                    parts = [gemm_operands(body, m, n, k, gen) for _ in range(g)]
+                    x_ops = (torch.stack([p[0][0] for p in parts]),)
+                    w_ops = (torch.stack([p[1][0] for p in parts]),)
+                    ws, as_, bias = (torch.stack([p[j] for p in parts])
+                                     for j in (2, 3, 4))
+                    del parts
+                    acc = harness.gemm_grouped(body, x_ops, w_ops, None, None,
+                                               k=k, out="acc")
+                    if not torch.equal(acc, grouped_plain(body, x_ops, w_ops, None,
+                                                          None, None, k, "acc")):
+                        raise AssertionError(f"K11 {body.name} {arch} {name} M={m}: "
+                                             f"accumulator != plain")
+                    for i in range(g):
+                        one = harness.gemm(body, (x_ops[0][i],), (w_ops[0][i],),
+                                           None, None, k=k, out="acc")
+                        if not torch.equal(acc[i], one):
+                            raise AssertionError(f"K11 {body.name} {arch} {name} "
+                                                 f"M={m}: group {i} != ungrouped")
+                    for b in (None, bias):
+                        got = harness.gemm_grouped(body, x_ops, w_ops, ws, as_, b, k=k)
+                        want = grouped_plain(body, x_ops, w_ops, ws, as_, b, k)
+                        loop = torch.stack([harness.gemm(
+                            body, (x_ops[0][i],), (w_ops[0][i],), ws[i], as_[i],
+                            None if b is None else b[i], k=k) for i in range(g)])
+                        if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
+                                and torch.equal(got.view(torch.int16),
+                                                loop.view(torch.int16))):
+                            raise AssertionError(f"K11 {body.name} {arch} {name} M={m} "
+                                                 f"bias={b is not None}: kernel != "
+                                                 f"plain / ungrouped")
+                    ms = time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws,
+                                                              as_, k=k), 10, flush)
+                    nbytes = (sum(t.numel() * t.element_size() for t in x_ops + w_ops)
+                              + 4 * g * (m + n) + 2 * g * m * n)
+                    ops = 2.0 * g * m * n * k
+                    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+                    msg = (f"[kernels] gemm_grouped {body.name:11s} {arch} {name:4s} "
+                           f"G={g} M={m:3d} N={n:5d} K={k}: bit-equal to plain and to "
+                           f"{g} ungrouped launches  kernel {ms:.4f} ms  bound "
+                           f"{max(t_b, t_o) * 1e3:.4f} ms "
+                           f"({'bytes' if t_b >= t_o else 'operations'})")
+                    if m == GROUPED_ROWS[0]:
+                        pms = time_ms(lambda: grouped_plain(body, x_ops, w_ops, ws,
+                                                            as_, None, k), 1)
+                        msg += f"  plain {pms:.2f} ms"
+                        if arch == MOE_ARCHS[0] and body is i4gemm.INT4_W_I8A:
+                            n_l = cfg.n_layers
+                            tick["ms"] += n_l * ms
+                            tick["plain_ms"] += n_l * pms
+                            tick["bytes"] += n_l * nbytes
+                            tick["ops"] += n_l * ops
+                    if body is i8gemm.I8_DOT and m > 16:
+                        # yardstick: torch._int_mm once per expert (M > 16 only)
+                        xs, wsl = list(x_ops[0]), list(w_ops[0])
+                        lib = time_ms(lambda: [torch._int_mm(a, w_)
+                                               for a, w_ in zip(xs, wsl)], 10, flush)
+                        msg += f"  torch._int_mm x {g} experts {lib:.4f} ms"
+                    log(msg)
+                    del x_ops, w_ops, ws, as_, bias, acc
+    t_b, t_o = tick["bytes"] / HBM_BYTES_PER_S, tick["ops"] / INT8_OPS_PER_S
+    return {"name": "gemm_grouped", "max_abs_err": 0.0, "ms": tick["ms"],
+            "plain_ms": tick["plain_ms"], "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            # het's experts run the s4 x int8 body: PyTorch has no such GEMM
             "library_ms": None}
 
 
@@ -515,6 +641,7 @@ def phase_kernels(cfg, recs: list) -> None:
                     else check_gemm(body, cfg, flush, gen, accs))
     recs.append(check_paged(cfg, flush, gen))
     recs.append(check_flash(cfg, flush, gen))
+    recs.append(check_grouped(flush, gen))
     log("[kernels] mxu accumulators == popcount accumulators at every shape")
 
 
@@ -551,24 +678,53 @@ def serve(cfg, sparams, slots, reqs, impl="popcount", spec_draft=None):
     return srv, ticks, dt
 
 
+def linear_specs(cfg) -> list:
+    """Every quantized linear of one forward call: lm_head and, per block,
+    qkv, out and the FFN's, or an MoE block's router, expert stacks and
+    shared expert."""
+    from repro_torch.models import transformer
+    sp = transformer.build_specs(cfg)
+    specs = [sp.lm_head]
+    for b in sp.blocks:
+        specs += [b.mixer.qkv, b.mixer.out]
+        f = b.ffn
+        if b.is_moe:
+            specs += [f.router, f.up, f.down]
+            if f.shared is not None:
+                specs += [f.shared.up, f.shared.down]
+        else:
+            specs += [f.up, f.down]
+    return specs
+
+
+def gemm_launches_per_call(cfg, impl="popcount") -> dict:
+    """GEMM kernel -> its launches in one forward call (a prefill or a
+    decode tick): one per layer that resolves to its body, and one grouped
+    launch (K11) per expert stack with a body."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.common import ModelCtx, operating_point
+    out = {}
+    for spec in linear_specs(cfg):
+        body = dispatch.lookup(operating_point(spec, ModelCtx(impl=impl))).body
+        if body is not None:
+            name = "gemm_grouped" if spec.experts else body.name
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
 def expected_kernels(cfg, impl, reqs, spec_draft=None) -> set:
     """The kernels a serve run must launch: the GEMM body of every layer
     that has one (under the draft's context too, for a speculative run),
-    paged decode, and flash attention when a prompt lands in a bucket that
-    is a multiple of 256."""
-    from repro_torch.kernels import dispatch
-    from repro_torch.models import transformer
-    from repro_torch.models.common import ModelCtx, operating_point
-    sp = transformer.build_specs(cfg)
-    specs = [sp.lm_head] + [s for b in sp.blocks for s in
-                            (b.mixer.qkv, b.mixer.out, b.ffn.up, b.ffn.down)]
-    ctxs = [ModelCtx(impl=impl)]
+    the grouped GEMM for an expert stack with a body, paged decode, and
+    flash attention when a prompt lands in a bucket that is a multiple of
+    256."""
+    want = {"paged_flash_decode"} | set(gemm_launches_per_call(cfg, impl))
     if spec_draft:
         depth = spec_draft.partition(":")[2]
-        ctxs.append(ModelCtx(impl="planes", draft_planes=int(depth or 1)))
-    want = {"paged_flash_decode"}
-    for spec in specs:
-        for ctx in ctxs:
+        from repro_torch.kernels import dispatch
+        from repro_torch.models.common import ModelCtx, operating_point
+        ctx = ModelCtx(impl="planes", draft_planes=int(depth or 1))
+        for spec in linear_specs(cfg):
             body = dispatch.lookup(operating_point(spec, ctx)).body
             if body is not None:
                 want.add(body.name)
@@ -578,9 +734,10 @@ def expected_kernels(cfg, impl, reqs, spec_draft=None) -> set:
 
 
 def served(label, cfg, sparams, impl, reqs, device_name, total,
-           spec_draft=None) -> dict:
+           spec_draft=None, on_done=None) -> dict:
     """One 4-slot serve run with the launch counts set to 0 just before it
-    and read just after, added to `total`; returns the tokens by request."""
+    and read just after, added to `total`; returns the tokens by request.
+    `on_done(srv, launches)` checks more of the run."""
     import repro_torch.kernels as K
     from repro_torch.launch.serve import tree_nbytes
     torch.cuda.reset_peak_memory_stats()
@@ -612,6 +769,8 @@ def served(label, cfg, sparams, impl, reqs, device_name, total,
                      if runs[n] == 0)
     if missing:
         raise AssertionError(f"{label}: kernels {missing} never launched")
+    if on_done is not None:
+        on_done(srv, runs)
     return out
 
 
@@ -676,9 +835,6 @@ def phase_serve(cfg0, device_name) -> dict:
         out = served(label, cfg, sp, "popcount", mixed, device_name, total)
         same_as_one_slot(label, cfg, sp, "popcount", mixed, out)
     del train
-    for name, n in total.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} never launched on the serve path")
 
     for policy in POLICIES:
         cfg = cfgs[policy]
@@ -725,6 +881,75 @@ def planes_and_spec(cfgs, packed, twins, outs, mixed, device_name, total) -> Non
     log(f"[serve] {label}: spec tokens == sequential tokens")
 
 
+#: MoE serve runs: (arch, policy, layers; None = the arch's full depth)
+MOE_RUNS = (("deepseek-moe-16b", "het", None), ("deepseek-moe-16b", "int8", None),
+            ("phi3.5-moe-42b-a6.6b", "het", 4), ("deepseek-moe-16b", "w-ternary", 4))
+
+
+def moe_checks(label, cfg):
+    """The MoE run's own checks: the routing counters add up, and the
+    GEMM launches are exactly one per layer per forward call, one grouped
+    launch (K11) per expert projection, none of the ungrouped bodies per
+    expert."""
+    def check(srv, runs):
+        st = srv.stats
+        et = st["moe_expert_tokens"]
+        if not (st["moe_routed"] == sum(et) + st["moe_dropped"] and st["moe_routed"] > 0):
+            raise AssertionError(f"{label}: moe_routed {st['moe_routed']} != "
+                                 f"sum(moe_expert_tokens) {sum(et)} + moe_dropped "
+                                 f"{st['moe_dropped']}")
+        calls = st["prefills"] + st["decode_ticks"]
+        want = {n: c * calls for n, c in gemm_launches_per_call(cfg).items()}
+        got = {n: c for n, c in runs.items() if c and n not in ATTENTION_KERNELS}
+        if got != want:
+            raise AssertionError(f"{label}: GEMM launches {got} != {want} "
+                                 f"({calls} forward calls)")
+        log(f"[moe] {label}: moe_routed {st['moe_routed']} == sum(moe_expert_tokens) "
+            f"{sum(et)} + moe_dropped {st['moe_dropped']}; expert tokens min "
+            f"{min(et)} max {max(et)}; GEMM launches {got} == per call x {calls} calls")
+    return check
+
+
+def phase_moe(device_name, launches) -> None:
+    """MoE serving: deepseek-moe-16b at full width and depth under het
+    (K11 with the K9 body, and K1/K8/K9/K5) and int8 (K11 with K1),
+    phi3.5-moe-42b-a6.6b at full width and 4 layers under het (its 32 bf16
+    layers are ~84 GB before packing: cut), and deepseek under w-ternary
+    (weight-only experts, no K11) at 4 layers. Each from the port's seeded
+    init, packed block by block, on the serve CLI's prompts: 4-slot tokens
+    == 1-slot tokens, routing counters printed and checked, GEMM launches
+    counted exactly; then one profiled 4-slot decode tick of deepseek het."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx
+    for arch, policy, layers in MOE_RUNS:
+        cfg = dataclasses.replace(get_config(arch), policy=policy)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        t0 = time.perf_counter()
+        sparams, train_b = transformer.init_for_serve(cfg, gen, "cuda")
+        torch.cuda.synchronize()
+        label = f"{arch} policy={policy} ({cfg.n_layers} layers)"
+        log(f"[moe] {label}: d_model {cfg.d_model}, {cfg.n_experts} experts top-"
+            f"{cfg.top_k}, {cfg.n_shared_experts} shared, d_ff {cfg.d_ff}; train "
+            f"layout {train_b / 2 ** 30:.2f} GiB, seeded init + pack block by block "
+            f"in {time.perf_counter() - t0:.1f}s")
+        reqs = prompts(cfg)
+        out = served(label, cfg, sparams, "popcount", reqs, device_name, launches,
+                     on_done=moe_checks(label, cfg))
+        same_as_one_slot(label, cfg, sparams, "popcount", reqs, out)
+        toks = torch.from_numpy(reqs[0]).to("cuda")[None]
+        logits, _ = transformer.prefill(sparams, toks, transformer.build_specs(cfg),
+                                        ModelCtx())
+        if logits.shape != (1, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{label}: prefill logits {tuple(logits.shape)}")
+        if (arch, policy, layers) == MOE_RUNS[0]:
+            profile_tick(cfg, sparams, device_name)
+        del sparams
+        torch.cuda.empty_cache()
+
+
 def profile_tick(cfg, sparams, device_name, impl="popcount") -> None:
     """Where one 4-slot decode tick's time goes: host wall time, device busy
     time and kernel count from torch.profiler, and the top kernels."""
@@ -763,10 +988,10 @@ def profile_tick(cfg, sparams, device_name, impl="popcount") -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     if not kernels:
-        log(f"[profile] policy={cfg.policy} impl={impl}: decode tick {wall:.2f} ms wall; device "
+        log(f"[profile] {cfg.name} policy={cfg.policy} impl={impl}: decode tick {wall:.2f} ms wall; device "
             f"time not measured (the profiler recorded no device events)")
         return
-    log(f"[profile] policy={cfg.policy} impl={impl}: decode tick {wall:.2f} ms wall, device busy "
+    log(f"[profile] {cfg.name} policy={cfg.policy} impl={impl}: decode tick {wall:.2f} ms wall, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.1f} %), {len(kernels)} kernels on "
         f"{device_name}; top: " + ", ".join(f"{n[:40]} {t:.3f} ms" for n, t in top))
 
@@ -787,9 +1012,16 @@ def main() -> int:
     failures = []
     recs, launches = [], {}
     device_name = phase_device()
+    def phase_launches():
+        for name in REPLACES:
+            if launches.get(name, 0) == 0:
+                raise AssertionError(f"kernel {name} never launched on the serve path")
+
     for phase, fn in (("build", phase_build),
                       ("kernels", lambda: phase_kernels(cfg, recs)),
-                      ("serve", lambda: launches.update(phase_serve(cfg, device_name)))):
+                      ("serve", lambda: launches.update(phase_serve(cfg, device_name))),
+                      ("moe", lambda: phase_moe(device_name, launches)),
+                      ("launches", phase_launches)):
         t0 = time.perf_counter()
         try:
             fn()

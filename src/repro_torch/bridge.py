@@ -10,7 +10,9 @@ returns the port's params:
     for bit;
   * the reference's stacked `mid` periods (a leading n_periods axis over
     the scanned layers) are unstacked into the port's per-layer list,
-    ordered first, mid periods, remainder layers, last.
+    ordered first, mid periods, remainder layers, last; only that period
+    axis is indexed, so an MoE layer's expert stacks keep their expert
+    axis.
 The bridge itself imports no JAX.
 """
 from __future__ import annotations

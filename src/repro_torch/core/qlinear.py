@@ -4,7 +4,9 @@
 the reference; `pack_params` converts it to the packed serve layout of every
 weight precision (binary, ternary, int4, int8, none); `apply(mode="serve")` runs the
 layer through `kernels.dispatch.qgemm`. Packed words are int32 with the
-bits of the reference's uint32 words (see `core.pack`).
+bits of the reference's uint32 words (see `core.pack`). An expert-stacked
+layer (`experts = E`) carries a leading E on every weight leaf, in the
+train and in the serve layout.
 """
 from __future__ import annotations
 
@@ -25,38 +27,42 @@ class QLinearSpec:
     out_dim: int
     lq: LayerQuant = LayerQuant()
     use_bias: bool = False
+    experts: int = 0           # 0 = dense; >0 = leading expert axis on weights
     name: str = "qlinear"
 
 
 def init(generator: torch.Generator, spec: QLinearSpec, dtype=torch.float32,
          device="cpu") -> Params:
-    """Train-layout params: w (in, out) ~ N(0, 1) / sqrt(in_dim), zero bias.
-    Expert-stacked linears are not ported yet."""
-    w = torch.randn((spec.in_dim, spec.out_dim), generator=generator,
+    """Train-layout params: w ((E,) in, out) ~ N(0, 1) / sqrt(in_dim), zero
+    bias ((E,) out)."""
+    e = (spec.experts,) if spec.experts else ()
+    w = torch.randn(e + (spec.in_dim, spec.out_dim), generator=generator,
                     dtype=torch.float32, device=device)
     p: Params = {"w": (w * (1.0 / spec.in_dim ** 0.5)).to(dtype)}
     if spec.use_bias:
-        p["b"] = torch.zeros((spec.out_dim,), dtype=dtype, device=device)
+        p["b"] = torch.zeros(e + (spec.out_dim,), dtype=dtype, device=device)
     return p
 
 
 def pack_params(p: Params, spec: QLinearSpec) -> Params:
     """Convert train-layout params to the packed serve layout.
 
-    binary : w_packed  int32[out, in/32]   (bit = +1)
-             w_scale   f32[out]            (XNOR-Net per-channel alpha)
-    ternary: w_mask/w_sign int32[out, in/32]
-             w_scale   f32[out]
-    int4   : w_q4      int32[out, in/8]    (s4 nibble codes)
-             w_scale   f32[out]
-    int8   : w_q       int8[in, out]       (K-major)
-             w_scale   f32[out]
+    binary : w_packed  int32[(E,) out, in/32]   (bit = +1)
+             w_scale   f32[(E,) out]            (XNOR-Net per-channel alpha)
+    ternary: w_mask/w_sign int32[(E,) out, in/32]
+             w_scale   f32[(E,) out]
+    int4   : w_q4      int32[(E,) out, in/8]    (s4 nibble codes)
+             w_scale   f32[(E,) out]
+    int8   : w_q       int8[(E,) in, out]       (K-major per expert)
+             w_scale   f32[(E,) out]
     int4/int8 weights with int8 acts and word-aligned in_dim also carry the
     stacked bit-plane twin of the same codes, feeding the plane-composed
     cells (impl="planes") and their truncated-plane drafts:
-             w_planes  int32[bits, out, in/32]  (MSB-first 2c planes)
-    none   : w         bf16[in, out]       (dense weights, cast)
-    `a_scale` (f32 scalar) is the calibrated activation scale for int8 acts.
+             w_planes  int32[(E,) bits, out, in/32]  (MSB-first 2c planes)
+    none   : w         bf16[(E,) in, out]       (dense weights, cast)
+    `a_scale` (f32 scalar) is the calibrated activation scale for int8 acts,
+    one scalar shared by every expert of a stack. As in the reference, a
+    ternary stack is cut at one threshold over the whole stack.
     """
     w = p["w"].to(torch.float32)
     prec = spec.lq.weights.precision

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions —
 counterpart of `repro.kernels`.
 
-harness    — the output-stationary packed GEMM template (csrc/gemm.cu) and
-             its fused requant epilogue
+harness    — the output-stationary packed GEMM template (csrc/gemm.cu), its
+             fused requant epilogue, and the grouped launch (K11)
 i8gemm     — int8 x int8 body (__dp4a)
 bgemm      — binary bodies: XNOR+popcount, and ±1 unpack + __dp4a (mxu)
 tgemm      — ternary bodies: gated XNOR, trit unpack + __dp4a (mxu), and
@@ -28,6 +28,7 @@ BODIES = (i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT,
 #: every kernel launcher on the serve path, by name
 KERNELS = {
     **{body.name: body.kernel for body in BODIES},
+    "gemm_grouped": harness.GEMM_GROUPED,
     "paged_flash_decode": paged_attn.PAGED_DECODE,
     "flash_attention": flash_attn.FLASH_ATTN,
 }

@@ -1,8 +1,11 @@
 // Output-stationary packed GEMM with a fused requant epilogue: one template,
 // the MAC body a compile-time parameter.
 //
-// Replaces the TPU kernel `repro/kernels/harness.py` `gemm` + `_kernel`
-// (one pallas_call skeleton) with nine of its MacBodies:
+// Replaces the TPU kernels `repro/kernels/harness.py` `gemm` + `_kernel`
+// (one pallas_call skeleton) with nine of its MacBodies, and `gemm_grouped`
+// (the same call vmapped over a leading group axis, K11) through a second
+// entry point, `repro_gemm_grouped`, over the bodies below except the two
+// plane bodies:
 //   BODY_I8            `repro/kernels/i8gemm.py` `_i8_step`        (I8_DOT)
 //   BODY_BINARY        `repro/kernels/bgemm.py`  `_popcount_step`  (BINARY_POPCOUNT)
 //   BODY_TERNARY       `repro/kernels/tgemm.py`  `_popcount_step`  (TERNARY_POPCOUNT)
@@ -62,6 +65,16 @@
 // coalesces the weight loads and keeps the tile small (BN = 32) so that the
 // N/32 blocks spread over all SMs; it does not yet pipeline the loads
 // (cp.async/TMA) or use the int8 tensor cores (mma/wgmma) — later work.
+//
+// Groups (K11). `repro_gemm_grouped` runs G independent GEMMs of one shape
+// in one launch, the grid's third dimension over the groups: every operand
+// carries a leading G axis (x (G, M, .), w (G, N, .) or (G, K, N), w_scale
+// and bias (G, N), a_scale (G, M), out (G, M, N)), and a block offsets each
+// pointer by its group's stride and runs the unchanged body and epilogue.
+// An ungrouped launch is the one-group case. The MoE expert projections are
+// G = E weight stacks at decode M = slots x capacity (16 for 4 slots): the
+// same weight-byte bound, summed over the experts, with E times the blocks
+// of one expert's GEMM in flight.
 //
 // Exactness. The epilogue keeps the reference's order exactly and uses
 // __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA, and rounds
@@ -260,9 +273,20 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
             const uint32_t* __restrict__ w0, const uint32_t* __restrict__ w1,
             const float* __restrict__ w_scale, const float* __restrict__ a_scale,
             const float* __restrict__ bias, void* __restrict__ out, int out_acc,
-            int M, int N, int K, int w_planes, long long w_plane_stride) {
+            int M, int N, int K, int w_planes, long long w_plane_stride,
+            long long x_group_words, long long w_group_words) {
   using B = Body<BODY>;
   using C = Mac<B::MAC>;
+  // this block's group member: offset every operand by the group's stride
+  const long long g = blockIdx.z;
+  x0 += g * x_group_words;
+  if (x1) x1 += g * x_group_words;
+  w0 += g * w_group_words;
+  if (w1) w1 += g * w_group_words;
+  if (w_scale) w_scale += g * N;
+  if (a_scale) a_scale += g * M;
+  if (bias) bias += g * N;
+  const size_t obase = (size_t)g * M * N;
   // +1 word of padding: lane-strided reads of ws hit 32 distinct banks
   __shared__ uint32_t xs[C::PLANES][BM][KT + 1];
   __shared__ uint32_t ws[C::PLANES][BN][KT + 1];
@@ -315,13 +339,13 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
     const int m = m0 + r;
     const int dot = C::finish(acc[i], K);
     if (out_acc) {
-      static_cast<int*>(out)[(size_t)m * N + n] = dot;
+      static_cast<int*>(out)[obase + (size_t)m * N + n] = dot;
     } else {
       float y = __int2float_rn(dot);
       if (w_scale) y = __fmul_rn(y, w_scale[n]);
       if (a_scale) y = __fmul_rn(y, a_scale[m]);
       if (bias) y = __fadd_rn(y, bias[n]);
-      static_cast<__nv_bfloat16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(y);
+      static_cast<__nv_bfloat16*>(out)[obase + (size_t)m * N + n] = __float2bfloat16_rn(y);
     }
   }
 }
@@ -332,6 +356,42 @@ extern "C" void repro_gemm_tile(int* bm, int* bn, int* kt) {
   *bm = BM;
   *bn = BN;
   *kt = KT;
+}
+
+// One launch of `groups` GEMMs (groups = 1: the ungrouped call) on `stream`;
+// returns the launch's cudaError_t.
+static int launch(int body, int groups, const void* x0, const void* x1,
+                  const void* w0, const void* w1, const float* w_scale,
+                  const float* a_scale, const float* bias, void* out,
+                  int out_acc, int M, int N, int K, int w_planes,
+                  long long w_plane_stride, long long x_group_words,
+                  long long w_group_words, cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, groups);
+  const auto* a0 = static_cast<const uint32_t*>(x0);
+  const auto* a1 = static_cast<const uint32_t*>(x1);
+  const auto* b0 = static_cast<const uint32_t*>(w0);
+  const auto* b1 = static_cast<const uint32_t*>(w1);
+#define LAUNCH(ID)                                                            \
+  case ID:                                                                    \
+    gemm_kernel<ID><<<grid, THREADS, 0, stream>>>(                            \
+        a0, a1, b0, b1, w_scale, a_scale, bias, out, out_acc, M, N, K,        \
+        w_planes, w_plane_stride, x_group_words, w_group_words);              \
+    break;
+  switch (body) {
+    LAUNCH(BODY_I8)
+    LAUNCH(BODY_BINARY)
+    LAUNCH(BODY_TERNARY)
+    LAUNCH(BODY_BINARY_MXU)
+    LAUNCH(BODY_TERNARY_MXU)
+    LAUNCH(BODY_TERNARY_W_I8A)
+    LAUNCH(BODY_INT4_W_I8A)
+    LAUNCH(BODY_PLANES_W4)
+    LAUNCH(BODY_PLANES_W8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
 }
 
 // body: one of the BODY_* constants. x1/w1 are the sign planes of trit
@@ -349,30 +409,27 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
   if ((body == BODY_PLANES_W4 && (w_planes < 1 || w_planes > 4)) ||
       (body == BODY_PLANES_W8 && (w_planes < 1 || w_planes > 8)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const auto* a0 = static_cast<const uint32_t*>(x0);
-  const auto* a1 = static_cast<const uint32_t*>(x1);
-  const auto* b0 = static_cast<const uint32_t*>(w0);
-  const auto* b1 = static_cast<const uint32_t*>(w1);
-#define LAUNCH(ID)                                                            \
-  case ID:                                                                    \
-    gemm_kernel<ID><<<grid, THREADS, 0, stream>>>(                            \
-        a0, a1, b0, b1, w_scale, a_scale, bias, out, out_acc, M, N, K,        \
-        w_planes, w_plane_stride);                                            \
-    break;
-  switch (body) {
-    LAUNCH(BODY_I8)
-    LAUNCH(BODY_BINARY)
-    LAUNCH(BODY_TERNARY)
-    LAUNCH(BODY_BINARY_MXU)
-    LAUNCH(BODY_TERNARY_MXU)
-    LAUNCH(BODY_TERNARY_W_I8A)
-    LAUNCH(BODY_INT4_W_I8A)
-    LAUNCH(BODY_PLANES_W4)
-    LAUNCH(BODY_PLANES_W8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  return launch(body, 1, x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc,
+                M, N, K, w_planes, w_plane_stride, 0, 0, stream);
+}
+
+// K11: `groups` GEMMs of one (M, N, K) shape in one launch. Every operand is
+// contiguous with a leading group axis: x0/x1 and w0/w1 advance by
+// x_group_words / w_group_words 32-bit words from one group to the next,
+// w_scale and bias by N floats, a_scale by M floats, out by M * N elements.
+// The plane bodies are refused.
+extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
+                                  const void* x1, const void* w0,
+                                  const void* w1, const float* w_scale,
+                                  const float* a_scale, const float* bias,
+                                  void* out, int out_acc, int M, int N, int K,
+                                  long long x_group_words,
+                                  long long w_group_words,
+                                  cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || groups <= 0 || groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (body == BODY_PLANES_W4 || body == BODY_PLANES_W8)
+    return (int)cudaErrorInvalidValue;
+  return launch(body, groups, x0, x1, w0, w1, w_scale, a_scale, bias, out,
+                out_acc, M, N, K, 1, 0, x_group_words, w_group_words, stream);
 }

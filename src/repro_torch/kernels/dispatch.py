@@ -23,7 +23,12 @@ All single-device cells of the reference are registered: binary and
 ternary (popcount and mxu), int8, the mixed w-ternary/w-int4 x a-int8
 cells, the plane-composed int4/int8 x int8 cells (`impl="planes"`, with
 `OperatingPoint.planes` truncating the stack), and the weight-only and
-dense cells. Not ported: tensor and expert parallelism. There is no tune
+dense cells. An expert-stacked layer (`spec.experts = E`, every weight
+leaf with a leading E) runs as the reference's vmap over the experts does:
+one prep over all (E·M, K) rows, then for a weight-and-activation cell ONE
+`harness.gemm_grouped` launch (K11) over the E weight stacks, and for a
+weight-only or dense cell one batched torch product. Not ported: tensor
+and expert parallelism, and plane cells on expert stacks. There is no tune
 table: the CUDA tile is
 compile-time (`harness.Tile`), and the reference's `tune_cpu.json` holds
 interpret-mode CPU picks that say nothing about the card.
@@ -157,11 +162,12 @@ def _matmul_nk(x: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     f32: the bf16 product with an f32 accumulator, as XLA computes the
     reference's bf16 dot. Every operand value is exact in f32, so this is
     that product up to the order of the f32 sum (TF32 stays off: torch's
-    default `allow_tf32 = False` for matmul)."""
-    m = x.shape[0]
+    default `allow_tf32 = False` for matmul). An expert stack, (E, M, K) x
+    (E, N, K) -> (E, M, N), pads each expert's slab of rows."""
+    m = x.shape[-2]
     pad = (-m) % ROW_QUANTUM
     xf = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, pad))
-    return (xf @ w_nk.to(torch.float32).T)[:m]
+    return (xf @ w_nk.to(torch.float32).transpose(-1, -2))[..., :m, :]
 
 
 def _acc_wonly_binary(x_ops, w_ops, k):
@@ -177,11 +183,11 @@ def _acc_wonly_int4(x_ops, w_ops, k):
 
 
 def _acc_wonly_int8(x_ops, w_ops, k):
-    return _matmul_nk(x_ops[0], w_ops[0].T)          # w_q is (K, N)
+    return _matmul_nk(x_ops[0], w_ops[0].transpose(-1, -2))   # w_q is (K, N)
 
 
 def _acc_dense(x_ops, w_ops, k):
-    return _matmul_nk(x_ops[0], w_ops[0].T)          # w is (K, N) bf16
+    return _matmul_nk(x_ops[0], w_ops[0].transpose(-1, -2))   # w is (K, N) bf16
 
 
 def _requant_narrow(acc, w_scale, bias):
@@ -298,6 +304,8 @@ def qgemm(p: dict, x: torch.Tensor, spec,
             f"OperatingPoint {op.tag} does not match the layer's policy "
             f"assignment {spec.lq.tag} for {spec.name!r}")
     cell = lookup(op)
+    if spec.experts:
+        return _qgemm_experts(cell, op, p, x, spec)
     k, n = spec.in_dim, spec.out_dim
     lead = x.shape[:-1]
     x2d = x.reshape(-1, k)
@@ -310,3 +318,40 @@ def qgemm(p: dict, x: torch.Tensor, spec,
         y = _requant_narrow(cell.acc(x_ops, w_ops, k), p.get("w_scale"),
                             p.get("b")).to(torch.bfloat16)
     return y.reshape(*lead, n)
+
+
+def _qgemm_experts(cell: GemmCell, op: OperatingPoint, p: dict,
+                   x: torch.Tensor, spec) -> torch.Tensor:
+    """An expert-stacked layer: x (E, ..., K) -> (E, ..., N) bf16, expert e
+    through weight slice e; the reference vmaps `qgemm` over the experts,
+    with `a_scale` shared.
+
+    Every prep is row-local (the binary/ternary per-row means, the int8
+    constant scale), so one prep over the (E·M, K) rows gives each expert
+    the operands its own call would. A weight-and-activation cell then
+    runs ONE grouped launch (K11) over the E stacks; a weight-only or dense
+    cell one batched product, each expert's slab padded to ROW_QUANTUM rows
+    so that its rows do not depend on how many came with them."""
+    e, k, n = spec.experts, spec.in_dim, spec.out_dim
+    if x.shape[0] != e:
+        raise ValueError(f"{spec.name!r}: activations {tuple(x.shape)} need a "
+                         f"leading expert axis of {e}")
+    if "w_planes" in cell.weight_names:
+        raise NotImplementedError(f"{cell.op.tag} on an expert stack is not yet "
+                                  f"ported (plane-stacked expert weights)")
+    lead = x.shape[1:-1]
+    x2d = x.reshape(-1, k)
+    m = x2d.shape[0] // e
+    x_ops, a_scale = cell.prep(x2d, p, spec)
+    x_ops = tuple(t.reshape(e, m, -1) for t in x_ops)
+    w_ops = _weight_ops(cell, op, p)
+    w_scale, bias = p.get("w_scale"), p.get("b")
+    if cell.body is not None:
+        y = harness.gemm_grouped(cell.body, x_ops, w_ops, w_scale,
+                                 a_scale.reshape(e, m), bias, k=k)
+    else:
+        y = _requant_narrow(cell.acc(x_ops, w_ops, k),
+                            None if w_scale is None else w_scale[:, None, :],
+                            None if bias is None else bias[:, None, :]
+                            ).to(torch.bfloat16)
+    return y.reshape(e, *lead, n)

@@ -6,7 +6,9 @@ names the compile-time MAC body it instantiates, the operand layout it
 takes, and its plain PyTorch version (`plain`), which states the same
 algebra with torch ops. `gemm` launches the kernel for CUDA tensors and runs
 the plain version for CPU tensors; it never falls back from one to the
-other.
+other. `gemm_grouped` (K11) runs G GEMMs of one shape, every operand
+carrying a leading group axis, as ONE launch of the same template
+(`repro_gemm_grouped`, counted by `GEMM_GROUPED`).
 """
 from __future__ import annotations
 
@@ -26,6 +28,13 @@ def gemm_kernel() -> Kernel:
     each MacBody holds one, so launches are counted per body."""
     return Kernel("gemm", "repro_gemm",
                   [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L])
+
+
+#: the grouped launcher (K11, `repro_gemm_grouped`): one count over every
+#: body it runs, so that a run tells grouped launches from ungrouped ones
+GEMM_GROUPED = Kernel("gemm", "repro_gemm_grouped",
+                      [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _L, _L])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,13 +166,100 @@ def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
         if out == "acc":
             return dot
         return requant(dot, w_scale, a_scale, bias).to(torch.bfloat16)
+    rq = out == "requant"
+    _check_cuda(body, x_ops, w_ops, (w_scale, a_scale, bias) if rq else (), n)
+    y = torch.empty((m, n), dtype=torch.bfloat16 if rq else torch.int32,
+                    device=dev)
+    if m == 0:
+        return y
+    # a plane stack: its live planes and the words from one plane to the next
+    planes, stride = ((w_ops[0].shape[0], w_ops[0].stride(0)) if body.w_stack
+                      else (1, 0))
+    body.kernel(body.body_id, *_ptrs(body, x_ops, w_ops),
+                *(_ptr(t) if rq else None for t in (w_scale, a_scale, bias)),
+                y.data_ptr(), int(not rq), m, n, k, planes, stride)
+    return y
+
+
+def gemm_grouped(body: MacBody, x_ops: Sequence[torch.Tensor],
+                 w_ops: Sequence[torch.Tensor], w_scale: torch.Tensor | None,
+                 a_scale: torch.Tensor | None, bias: torch.Tensor | None = None,
+                 *, k: int, out: str = "requant") -> torch.Tensor:
+    """K11: `gemm` over a leading group axis G, in one launch on the card.
+
+    Every operand carries the same leading G: x_ops (G, M, K/xk_per_q);
+    w_ops (G, N, K/wk_per_q), or (G, K, N) when body.w_kmajor; w_scale
+    (G, N), a_scale (G, M), bias (G, N) f32 or None -> (G, M, N) bf16, or
+    the raw (G, M, N) int32 dot with out="acc". Member g is exactly
+    `gemm(body, x_ops[:, g], ...)`: the reference's `gemm_grouped` is that
+    call under `jax.vmap`. On CPU tensors the body's plain version runs once
+    per member, then `requant`; on CUDA tensors one `repro_gemm_grouped`
+    launch runs every member (its grid's third dimension), never a loop of
+    `gemm` launches. The plane bodies (K10) are not yet ported here."""
+    if out not in ("requant", "acc"):
+        raise ValueError(f"out={out!r}")
+    if body.w_stack:
+        raise NotImplementedError(f"{body.name}: a grouped GEMM of plane-stacked "
+                                  f"weights is not yet ported")
+    if out == "requant" and (w_scale is None or a_scale is None):
+        raise ValueError("requant needs w_scale and a_scale")
+    g = x_ops[0].shape[0] if x_ops[0].ndim == 3 else 0
+    if g < 1 or any(t.ndim != 3 or t.shape[0] != g
+                    for t in list(x_ops) + list(w_ops)):
+        raise ValueError(f"{body.name}: grouped operands need one leading group "
+                         f"axis G >= 1, got {[tuple(t.shape) for t in x_ops]} x "
+                         f"{[tuple(t.shape) for t in w_ops]}")
+    m, n = _check(body, [t[0] for t in x_ops], [t[0] for t in w_ops], k)
+    for name, t, want in (("w_scale", w_scale, (g, n)), ("a_scale", a_scale, (g, m)),
+                          ("bias", bias, (g, n))):
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"{body.name}: {name} {tuple(t.shape)} != {want}")
+    dev = x_ops[0].device
+    if dev.type == "cpu":
+        ys = []
+        for i in range(g):
+            dot = body.plain([t[i] for t in x_ops], [t[i] for t in w_ops], k)
+            ys.append(dot if out == "acc" else requant(
+                dot, w_scale[i], a_scale[i], None if bias is None else bias[i]
+            ).to(torch.bfloat16))
+        return torch.stack(ys)
+    rq = out == "requant"
+    _check_cuda(body, x_ops, w_ops, (w_scale, a_scale, bias) if rq else (), n)
+    y = torch.empty((g, m, n), dtype=torch.bfloat16 if rq else torch.int32,
+                    device=dev)
+    if m == 0:
+        return y
+
+    def words(t):        # 32-bit words from one group member to the next
+        return t.stride(0) * t.element_size() // 4
+
+    GEMM_GROUPED(body.body_id, g, *_ptrs(body, x_ops, w_ops),
+                 *(_ptr(t) if rq else None for t in (w_scale, a_scale, bias)),
+                 y.data_ptr(), int(not rq), m, n, k, words(x_ops[0]),
+                 words(w_ops[0]))
+    return y
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _ptrs(body: MacBody, x_ops, w_ops):
+    """x0, x1, w0, w1 of a launch: the second planes of trit operands, or
+    None."""
+    return (x_ops[0].data_ptr(), _ptr(x_ops[1]) if body.n_x > 1 else None,
+            w_ops[0].data_ptr(), _ptr(w_ops[1]) if body.n_w > 1 else None)
+
+
+def _check_cuda(body: MacBody, x_ops, w_ops, scales, n: int) -> None:
+    """What the CUDA kernel takes: contiguous operands on the card, int8
+    codes or int32 words as the body's sides store them, f32 scales and
+    bias (None entries are skipped), and N % 4 == 0 for K-major weights."""
+    dev = x_ops[0].device
     if dev.type != "cuda":
         raise ValueError(f"gemm: unsupported device {dev}")
-    ops = list(x_ops) + list(w_ops)
-    scales = [] if out == "acc" else [w_scale, a_scale]
-    if bias is not None and out == "requant":
-        scales.append(bias)
-    for t in ops + scales:
+    scales = [t for t in scales if t is not None]
+    for t in list(x_ops) + list(w_ops) + scales:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{body.name}: every operand must be a contiguous "
                              f"tensor on {dev}")
@@ -176,22 +272,3 @@ def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
                          f"{_dtype(body.xk)}, weight operands {_dtype(body.wk)}")
     if body.w_kmajor and n % 4:
         raise ValueError(f"{body.name}: K-major int8 weights need N % 4 == 0")
-    y = torch.empty((m, n), dtype=torch.int32 if out == "acc" else torch.bfloat16,
-                    device=dev)
-    if m == 0:
-        return y
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    x1 = x_ops[1] if body.n_x > 1 else None
-    w1 = w_ops[1] if body.n_w > 1 else None
-    rq = out == "requant"
-    # a plane stack: its live planes and the words from one plane to the next
-    planes, stride = ((w_ops[0].shape[0], w_ops[0].stride(0)) if body.w_stack
-                      else (1, 0))
-    body.kernel(body.body_id, ptr(x_ops[0]), ptr(x1), ptr(w_ops[0]), ptr(w1),
-                ptr(w_scale) if rq else None, ptr(a_scale) if rq else None,
-                ptr(bias) if rq else None, y.data_ptr(), int(not rq), m, n, k,
-                planes, stride)
-    return y

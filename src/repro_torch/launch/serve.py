@@ -7,12 +7,19 @@ a paged KV cache.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu --policy binary
     PYTHONPATH=src python -m repro_torch.launch.serve --policy w4a8 --impl planes
     PYTHONPATH=src python -m repro_torch.launch.serve --policy int8 --spec-draft planes:1 --spec-k 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --policy het
 
 Every single-device precision policy of `core.precision.POLICIES` is
 served, with the binary/ternary GEMMs in either formulation (`--impl
 popcount|mxu`), the int4/int8 x int8 layers as stacked binary planes
 (`--impl planes`), and self-speculative decoding (`--spec-draft
 planes[:DEPTH] --spec-k K`); prompts of any length up to `cache_len`.
+The MoE archs (deepseek-moe-16b, phi3.5-moe-42b-a6.6b) are served under
+every policy and `--impl popcount|mxu`, their weight-and-activation expert
+projections as one grouped GEMM launch each (K11), with the reference's
+routing counters in `Server.stats` (`moe_routed`, `moe_dropped`,
+`moe_expert_tokens`); `--impl planes` and `--spec-draft` on an MoE arch
+are not yet ported.
 
 What runs, as in the reference:
   * a fixed `slots` decode batch fed from a request FIFO; admission is
@@ -36,6 +43,9 @@ What runs, as in the reference:
     full-precision multi-token step, and keeps the longest prefix that
     matches what the full model samples: token-exact against sequential
     decode (`_spec_step`)
+  * for an MoE arch, every prefill and decode call's routing counters are
+    summed into `stats`; a decode tick routes (and counts) its idle rows
+    too, as the reference's does
 
 Not yet ported (asking for one raises): prefix sharing and copy-on-write,
 preemption and swap, chunked prefill, mesh serving, the contiguous-slab
@@ -57,7 +67,7 @@ from repro_torch.core.precision import POLICIES
 from repro_torch.launch import kv_cache
 from repro_torch.launch.kv_cache import NULL_PAGE, PageTable, pages_for
 from repro_torch.models import transformer
-from repro_torch.models.common import ModelCtx, sample_token
+from repro_torch.models.common import ModelCtx, sample_token, tree_nbytes
 
 
 @dataclasses.dataclass
@@ -126,6 +136,17 @@ class Server:
         self.stats = {"prefills": 0, "decode_ticks": 0, "peak_pages": 0,
                       "spec_ticks": 0, "spec_proposed": 0, "spec_accepted": 0,
                       "spec_emitted": 0}
+        if cfg.n_experts:
+            if spec_draft or self.ctx.impl == "planes":
+                raise NotImplementedError(
+                    f"{cfg.name}: --spec-draft and --impl planes on an MoE arch "
+                    f"are not yet ported to repro_torch")
+            # routing telemetry: prefill/decode return the counters too.
+            # moe_routed: top-k assignments (kept + dropped);
+            # moe_expert_tokens[e]: the assignments expert e served
+            self.ctx = dataclasses.replace(self.ctx, moe_stats=True)
+            self.stats.update({"moe_routed": 0, "moe_dropped": 0,
+                               "moe_expert_tokens": [0] * cfg.n_experts})
         self._init_spec(cfg, params, spec_draft, spec_k)
 
     def _init_spec(self, cfg, params, spec_draft, spec_k):
@@ -167,6 +188,24 @@ class Server:
         # leading spec_planes MSB planes; every other layer runs as usual
         self.draft_ctx = dataclasses.replace(self.ctx, impl="planes",
                                              draft_planes=self.spec_planes)
+
+    # -- routing counters --------------------------------------------------------
+
+    def _pop_moe(self, res):
+        """Strip the routing counters off a serve entry point's result under
+        ctx.moe_stats and add them to `stats`; no-op otherwise. (The
+        reference queues them for a later drain, to keep its dispatch-ahead
+        overlap; this server syncs on every tick's sampling anyway.)"""
+        if not self.ctx.moe_stats:
+            return res
+        *rest, st = res
+        et = st["expert_tokens"].cpu().numpy()
+        dropped = int(st["dropped"])
+        self.stats["moe_dropped"] += dropped
+        self.stats["moe_routed"] += int(et.sum()) + dropped
+        self.stats["moe_expert_tokens"] = [
+            a + int(b) for a, b in zip(self.stats["moe_expert_tokens"], et)]
+        return tuple(rest)
 
     # -- request lifecycle -----------------------------------------------------
 
@@ -217,9 +256,9 @@ class Server:
         bucket = self._bucket(n)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = req.prompt
-        logits, rc = transformer.prefill(
+        logits, rc = self._pop_moe(transformer.prefill(
             self.params, torch.from_numpy(toks).to(self.device), self.sp,
-            self.ctx, cache_len=self.cache_len, last_pos=[n - 1])
+            self.ctx, cache_len=self.cache_len, last_pos=[n - 1]))
         self.stats["prefills"] += 1
         req.out.append(self._sample(req, logits[0, -1].cpu().numpy()))
         pad = pages_for(bucket, self.page_size) - len(scatter_ids)
@@ -406,10 +445,10 @@ class Server:
             # rows of idle slots point at the scratch page only
             table = self._masked_table(active)
             dev = self.device
-            logits, self.cache = transformer.decode_step(
+            logits, self.cache = self._pop_moe(transformer.decode_step(
                 self.params, self.cache, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(pos).to(dev), self.sp, self.ctx,
-                pages=torch.from_numpy(table).to(dev))
+                pages=torch.from_numpy(table).to(dev)))
             self.stats["decode_ticks"] += 1
             for s in active:
                 self.slot_pos[s] += 1
@@ -440,7 +479,9 @@ _NOT_PORTED = ("prefix_share", "preempt", "chunk_tokens", "mesh",
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="llama3.2-3b",
+                    help="llama3.2-3b (default), or an MoE arch: "
+                         "deepseek-moe-16b, phi3.5-moe-42b-a6.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -494,8 +535,11 @@ def main(argv=None):
     if asked:
         flags = ", ".join("--" + f.replace("_", "-") for f in asked)
         raise SystemExit(f"{flags}: not yet ported to repro_torch")
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.n_experts and (args.spec_draft or args.impl == "planes"):
+        raise SystemExit(f"--spec-draft / --impl planes on the MoE arch "
+                         f"{cfg.name}: not yet ported to repro_torch")
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced()
     if args.policy:
@@ -506,11 +550,11 @@ def main(argv=None):
     ctx = ModelCtx(dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
                    impl=args.impl)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = transformer.init(cfg, gen, device)
-    sparams = transformer.pack_for_serve(
-        params, cfg, plane_twins=args.spec_draft is not None or args.impl == "planes")
-    train_b, serve_b = tree_nbytes(params), tree_nbytes(sparams)
-    del params
+    # block by block: the train layout of a full-depth MoE arch would not fit
+    sparams, train_b = transformer.init_for_serve(
+        cfg, gen, device,
+        plane_twins=args.spec_draft is not None or args.impl == "planes")
+    serve_b = tree_nbytes(sparams)
     print(f"packed weights: {train_b / 2**20:.1f} MiB -> {serve_b / 2**20:.1f} MiB "
           f"({train_b / serve_b:.1f}x smaller, policy={cfg.policy}, "
           f"impl={args.impl})")
@@ -545,16 +589,15 @@ def main(argv=None):
     print(f"page pool: {srv.pt.usable_pages} usable pages x "
           f"{srv.pt.page_size} tokens, peak {st['peak_pages']} live, "
           f"{srv.pt.free_pages} free at exit")
+    if cfg.n_experts:
+        routed = max(st["moe_routed"], 1)
+        et = st["moe_expert_tokens"]
+        util = [f"{v / max(sum(et), 1):.2f}" for v in et]
+        print(f"moe: dense expert dispatch, routed={st['moe_routed']} "
+              f"dropped={st['moe_dropped']} (drop-rate "
+              f"{st['moe_dropped'] / routed:.1%}), expert util {util}")
     return srv
 
-
-def tree_nbytes(tree) -> int:
-    """Bytes held by the tensors of a nested dict/list of tensors."""
-    if isinstance(tree, dict):
-        return sum(tree_nbytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(tree_nbytes(v) for v in tree)
-    return tree.numel() * tree.element_size()
 
 
 if __name__ == "__main__":

@@ -27,20 +27,26 @@ class ModelCtx:
     ("popcount" | "mxu" | "planes"; a pair without a cell of that
     formulation runs its default cell), and `draft_planes`, the leading
     plane count the self-speculative draft's plane-composed layers contract
-    (None = full precision). Only the serve mode is ported, and where a
-    GEMM runs follows from the device of its tensors."""
+    (None = full precision), and `moe_stats`: the serve entry points
+    (`transformer.prefill`, `decode_step`, `decode_verify`) return a third
+    value, the MoE routing counters {"expert_tokens": (E,) int32,
+    "dropped": int32} summed over the MoE blocks (off: 2-tuples, so
+    non-MoE callers keep their shapes). Only the serve mode is ported, and
+    where a GEMM runs follows from the device of its tensors."""
     dtype: torch.dtype = torch.bfloat16
     impl: str = "popcount"
     draft_planes: int | None = None
+    moe_stats: bool = False
 
 
 # -- linear helper ------------------------------------------------------------
 
 def lspec(pol: PrecisionPolicy, layer_class: str, in_dim: int, out_dim: int, *,
           first: bool = False, last: bool = False, bias: bool = False,
-          name: str = "") -> QLinearSpec:
+          experts: int = 0, name: str = "") -> QLinearSpec:
     lq = pol.lookup(layer_class, is_first=first, is_last=last)
-    return QLinearSpec(in_dim, out_dim, lq, use_bias=bias, name=name or layer_class)
+    return QLinearSpec(in_dim, out_dim, lq, use_bias=bias, experts=experts,
+                       name=name or layer_class)
 
 
 def operating_point(spec: QLinearSpec, ctx: ModelCtx):
@@ -68,6 +74,15 @@ def operating_point(spec: QLinearSpec, ctx: ModelCtx):
 
 def linear_apply(p, x, spec: QLinearSpec, ctx: ModelCtx):
     return qlinear.apply(p, x, spec, op=operating_point(spec, ctx)).to(ctx.dtype)
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes held by the tensors of a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
 
 
 # -- norms --------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Shared inputs of the port's JAX-comparison tests (tests/test_torch_*.py):
-the reduced llama3.2-3b under a policy, the JAX package's weights for it,
-and seeded prompts. Weights come from the JAX package's own init and are
+a reduced arch (llama3.2-3b unless asked) under a policy, the JAX
+package's weights for it, and seeded prompts. Weights come from the JAX package's own init and are
 carried to the port through numpy by `repro_torch.bridge`."""
 import dataclasses
 import functools
@@ -17,11 +17,11 @@ PAGE_SIZE = 4
 
 
 @functools.lru_cache(maxsize=None)
-def built(policy: str, n_layers: int = 2):
+def built(policy: str, n_layers: int = 2, arch: str = "llama3.2-3b"):
     """(jax cfg, port cfg, JAX train params, JAX packed params)."""
-    jcfg = dataclasses.replace(jget_config("llama3.2-3b").reduced(),
+    jcfg = dataclasses.replace(jget_config(arch).reduced(),
                                policy=policy, n_layers=n_layers)
-    tcfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+    tcfg = dataclasses.replace(get_config(arch).reduced(),
                                policy=policy, n_layers=n_layers)
     params = jtransformer.init(jax.random.PRNGKey(0), jcfg)
     sparams = jtransformer.pack_for_serve(params, jcfg)

@@ -23,7 +23,11 @@ model served through the kernels gives a 4-slot server the tokens of a
 mxu formulation gives the popcount formulation's tokens; `--impl planes`
 gives the direct cells' tokens, speculative decoding gives sequential
 decoding's tokens, and a verify row's logits are bit-equal to the
-sequential decode step's at the same position.
+sequential decode step's at the same position. The grouped GEMM (K11) is
+bit-equal to its plain version and to G separate ungrouped launches for
+every body it serves, in one launch; a reduced MoE arch served through it
+gives a 4-slot server the tokens of a 1-slot server, and launches it once
+per expert projection per forward call.
 """
 import dataclasses
 
@@ -185,6 +189,73 @@ def test_paged_kernel_matches_plain(cuda, dtype, int8, tol, hq, hk, dh):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k,n", [(3, 5, 256, 100), (8, 16, 2048, 352),
+                                     (2, 33, 1024, 96)])
+@pytest.mark.parametrize("body", [b for b in BODIES if not b.w_stack],
+                         ids=lambda b: b.name)
+def test_grouped_kernel_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k, n):
+    gen = torch.Generator().manual_seed(g * 1000 + m + n)
+    parts = [_operands(body, m, n, k, gen) for _ in range(g)]
+    x = tuple(torch.stack([p[0][j] for p in parts]) for j in range(body.n_x))
+    w = tuple(torch.stack([p[1][j] for p in parts]) for j in range(body.n_w))
+    ws, as_, b = (torch.stack([p[2][j] for p in parts]) for j in range(3))
+    dev = lambda ts: tuple(t.to(cuda) for t in ts)
+    before = harness.GEMM_GROUPED.launches
+    acc = harness.gemm_grouped(body, dev(x), dev(w), None, None, k=k, out="acc")
+    assert harness.GEMM_GROUPED.launches == before + 1
+    assert torch.equal(acc.cpu(), harness.gemm_grouped(body, x, w, None, None, k=k,
+                                                       out="acc"))
+    for i in range(g):
+        one = harness.gemm(body, dev(t[i] for t in x), dev(t[i] for t in w),
+                           None, None, k=k, out="acc")
+        assert torch.equal(acc[i], one), i
+    for bias in (None, b):
+        got = harness.gemm_grouped(body, dev(x), dev(w), ws.to(cuda), as_.to(cuda),
+                                   None if bias is None else bias.to(cuda), k=k)
+        want = harness.gemm_grouped(body, x, w, ws, as_, bias, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+        for i in range(g):
+            one = harness.gemm(body, dev(t[i] for t in x), dev(t[i] for t in w),
+                               ws[i].to(cuda), as_[i].to(cuda),
+                               None if bias is None else bias[i].to(cuda), k=k)
+            assert torch.equal(got[i].view(torch.int16), one.view(torch.int16)), i
+
+
+def _reduced_moe_serve(cuda, arch, policy, slots, lens=(3, 9, 14, 5, 30, 1)):
+    """Reduced `arch` (3 layers) served from the port's seeded init; returns
+    (tokens by request, stats, K11 launches)."""
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx
+    cfg = dataclasses.replace(get_config(arch).reduced(), policy=policy, n_layers=3)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sp = transformer.pack_for_serve(transformer.init(cfg, gen, cuda), cfg)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
+    srv = Server(cfg, sp, slots=slots, cache_len=64, page_size=8,
+                 ctx=ModelCtx(), device=cuda)
+    for i, p in enumerate(prompts):
+        srv.submit(Request(i, p, 8, seed=i))
+    before = harness.GEMM_GROUPED.launches
+    srv.run()
+    return ({r.rid: r.out for r in srv.completed}, srv.stats,
+            harness.GEMM_GROUPED.launches - before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["het", "int8", "ternary", "w-ternary"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"])
+def test_reduced_moe_serve_batched_equals_sequential_on_card(cuda, arch, policy):
+    toks, st, grouped = _reduced_moe_serve(cuda, arch, policy, 4)
+    assert toks == _reduced_moe_serve(cuda, arch, policy, 1)[0]
+    assert st["moe_routed"] == sum(st["moe_expert_tokens"]) + st["moe_dropped"] > 0
+    calls = st["prefills"] + st["decode_ticks"]
+    # every W&A expert projection is one grouped launch; weight-only none
+    assert grouped == (0 if policy == "w-ternary" else 2 * 3 * calls)
 
 
 def _reduced_serve(cuda, policy, slots, *, impl="popcount", kv="bfloat16",
