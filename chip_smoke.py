@@ -7,17 +7,21 @@ it end to end.
 Phases:
   1. device  — the card's name and power limit (nvidia-smi)
   2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc
-               (one nvcc per source, in parallel) for sm_90a
+               (one nvcc per source, in parallel) for sm_90a; prints each
+               kernel's registers and spills, and fails unless the SASS
+               (cuobjdump) of K6's bf16 kernel holds HMMA/HGMMA and that of
+               K10's large-M kernel IMMA/IGMMA instructions
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, at the serve path's full llama3.2-3b shapes: the packed
                GEMM under each of its seven MAC bodies at M = 4, 32 and 256
                (int32 accumulator and bf16 requant output bit-equal, bias
                on and off; the mxu bodies' accumulators equal the popcount
                bodies'), the plane-composed bodies (K10, int4 and int8
-               stacks) at P = 1, 2 and bits live planes (bit-equal, and at P
-               = bits equal to the direct int8 / int4 bodies' accumulators
-               on the composed codes), paged decode (bf16 and int8 pools,
-               within 2e-2), flash attention (T = 256, bf16, within 3e-2),
+               stacks) at P = 1, 2 and bits live planes and M = 4, 7, 9,
+               13, 16, 32, 40 and 256 (both regimes; bit-equal, and at P =
+               bits equal to the direct int8 / int4 bodies' accumulators on
+               the composed codes), paged decode (bf16 and int8 pools, within
+               2e-2), flash attention (T = 256 and 2048, bf16, within 3e-2),
                and the grouped GEMM (K11) at the full-width expert shapes of
                deepseek-moe-16b (G = 64) and phi3.5-moe-42b-a6.6b (G = 16),
                M = 16 and 128 rows per expert, K9 and K1 bodies (bit-equal
@@ -43,7 +47,9 @@ Phases:
                tokens == sequential tokens, with the drafted and accepted
                counts; then one profiled 4-slot decode tick for binary,
                ternary, int8, het, w-ternary and int8 under planes (wall
-               time, device busy time, top kernels)
+               time, device busy time, top kernels), and one profiled
+               256-token het prefill (time to first token: wall, device
+               busy, flash attention's share)
   5. moe     — MoE serving, 8 requests on the serve CLI's prompts, from the
                port's seeded init packed block by block: deepseek-moe-16b at
                full width and depth under het and int8, phi3.5-moe at full
@@ -65,13 +71,14 @@ Phases:
                attention, and per 4-slot deepseek-moe-16b het decode tick
                (28 x {up, down} expert stacks, K9 body) for K11
 The last line is {"ok": true, "device": {...}} only when every phase passed;
-any failure exits non-zero. Without a CUDA device, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+any failure exits non-zero. Without a CUDA device, or outside a checkout
+of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +94,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+SPIN_CYCLES = 200_000        # ~0.1 ms of device clock before each timed span
+TICK_SPIN_CYCLES = 40_000_000   # ~20 ms: the host issues a tick's launches meanwhile
 
 ARCH = "llama3.2-3b"
 POLICIES = ("binary", "ternary", "int8")     # the first slice's runs
@@ -109,6 +118,12 @@ PLANE_DEPTHS = (1, 2)                      # truncations checked besides bits
 SLOTS, CACHE_LEN, PAGE_SIZE, REQUESTS, MAX_NEW = 4, 256, 32, 8, 16
 PREFILL_BUCKET = 32          # the serve CLI's 4..16-token prompts land here
 LONG_BUCKET = 256            # the 129..224-token prompts land here
+LONG_PROMPT = 2048           # K6 is also checked at a 2048-token prompt
+#: K10's checked rows: decode (4 slots), each side of the switch from the
+#: streaming kernel to the tensor-core kernel above 8 rows (7 | 9), verify
+#: rows (4 slots x 4 drafts = 16) and a ragged 13, both prefill buckets and
+#: a ragged 40
+PLANE_ROWS = (SLOTS, 7, 9, 13, 16, PREFILL_BUCKET, 40, LONG_BUCKET)
 PAGED_POS = (1, 77, 160, 255)  # 4 slots, positions spread over 1..255
 
 _GEMM = "src/repro/kernels/harness.py:240 (gemm, {} body {})"
@@ -146,14 +161,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int, flush: torch.Tensor | None = None) -> float:
+def time_ms(fn, iters: int, flush: torch.Tensor | None = None,
+            spin: int = SPIN_CYCLES) -> float:
     """Mean device time of fn() over `iters` launches (CUDA events), after
     one warm-up. With `flush`, a buffer larger than the 50 MB L2 is read
     before every launch, outside the timed span, so each launch finds its
     operands cold, as in a decode tick, where the other 27 layers' weights
     pass through L2 between two uses of a layer's. (Reading, not writing:
     a written buffer leaves dirty lines whose write-back would be charged
-    to the timed launch.)"""
+    to the timed launch.) A spin of `spin` device cycles (~0.1 ms by
+    default) before the start event keeps the device behind the host, so
+    the span holds fn()'s device time and not the host's time to issue
+    it; fn() that issues many launches needs a longer one."""
     fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -161,6 +180,7 @@ def time_ms(fn, iters: int, flush: torch.Tensor | None = None) -> float:
     for s, e in zip(starts, ends):
         if flush is not None:
             flush.sum()
+        torch.cuda._sleep(spin)
         s.record()
         fn()
         e.record()
@@ -184,6 +204,53 @@ def phase_device() -> str:
 
 # -- phase 2 -----------------------------------------------------------------
 
+#: library -> (kernel whose SASS must hold tensor-core instructions, opcodes)
+TENSOR_CORE_KERNELS = {"flash_attn": ("flash_mma_kernel", ("HMMA", "HGMMA")),
+                       "gemm": ("planes_mma_kernel", ("IMMA", "IGMMA"))}
+
+
+def ptxas_report(name: str, text: str) -> None:
+    """One line per compiled kernel: its registers, shared memory and
+    spills, from the -Xptxas -v log."""
+    fn, parts = None, {}
+    for line in text.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            fn, parts = hit.group(1), {}
+        elif fn and "Used" in line and "registers" in line:
+            parts["used"] = line.split(":", 1)[1].strip()
+        elif fn and "spill" in line:
+            parts["spill"] = line.strip()
+        if fn and len(parts) == 2:
+            log(f"[build] {name} {fn[:90]}: {parts['used']}; {parts['spill']}")
+            fn = None
+
+
+def sass_tensor_cores() -> None:
+    """cuobjdump -sass (the toolkit's, beside nvcc) of the built libraries:
+    K6's bf16 kernel must hold HMMA (or HGMMA) and K10's large-M kernel IMMA
+    (or IGMMA) instructions."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        raise RuntimeError(f"{tool} not found")
+    for lib, (kernel, ops) in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+                 if kernel in f.split("\n", 1)[0]]
+        if not funcs:
+            raise RuntimeError(f"no {kernel} in the SASS of lib{lib}")
+        for f in funcs:
+            n = sum(1 for line in f.splitlines()
+                    if any(re.search(rf"\b{op}\b", line) for op in ops))
+            name = f.split("\n", 1)[0].strip()
+            if n == 0:
+                raise RuntimeError(f"{name}: no {'/'.join(ops)} instruction in its SASS")
+            log(f"[build] SASS {name[:90]}: {n} {'/'.join(ops)} instructions")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build, harness
     t0 = time.perf_counter()
@@ -191,9 +258,8 @@ def phase_build() -> None:
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{len(logs)} libraries in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        ptxas_report(name, text)
+    sass_tensor_cores()
     tile = harness.kernel_tile()
     if tile != harness.Tile():
         raise RuntimeError(f"compiled GEMM tile {tile} != harness.Tile() {harness.Tile()}")
@@ -436,19 +502,24 @@ def composed_codes(stack, k, bits, chunk=8192):
 
 
 def check_planes(body, cfg, flush, gen) -> dict:
-    """K10 vs its plain version at every serve GEMM shape, at M = SLOTS and
-    both prefill buckets, at P = 1, 2 and bits live planes (int32
-    accumulator and bf16 output bit-equal, bias on and off); at P = bits
-    the accumulator must also equal the direct body's (int8: K1, int4: K9)
-    on the composed codes. Returns the per-decode-tick record at P = bits:
-    the int8 body runs every layer of an int8 `--impl planes` tick, the
-    int4 body w4a8's 26 body layers."""
+    """K10 vs its plain version at every serve GEMM shape, at PLANE_ROWS (the
+    streaming kernel up to 8 rows, the tensor-core kernel above), at P = 1,
+    2 and bits live planes (int32 accumulator and bf16 output bit-equal,
+    bias on and off); at P = bits the accumulator must also equal the direct
+    body's (int8: K1, int4: K9) on the composed codes. Every (shape, M, P) is
+    timed, and above 16 rows `torch._int_mm` (which needs M > 16) on the
+    composed codes beside
+    it. Logs the decode tick at each P and returns the per-decode-tick
+    record at P = bits: the int8 body runs every layer of an int8 `--impl
+    planes` tick, the int4 body w4a8's 26 body layers."""
     from repro_torch.core import pack
     from repro_torch.kernels import harness, i4gemm, i8gemm
     bits = body.w_stack
     direct = i8gemm.I8_DOT if bits == 8 else i4gemm.INT4_W_I8A
-    tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-    for m in (SLOTS, PREFILL_BUCKET, LONG_BUCKET):
+    depths = PLANE_DEPTHS + (bits,)
+    tick = {"ms": dict.fromkeys(depths, 0.0), "bytes": dict.fromkeys(depths, 0.0),
+            "plain_ms": 0.0, "ops": 0.0}
+    for m in PLANE_ROWS:
         for si, (name, n, k, per_tick) in enumerate(gemm_shapes(cfg)):
             if bits == 4:
                 per_tick = 0 if name == "lm_head" else per_tick - 2
@@ -461,7 +532,7 @@ def check_planes(body, cfg, flush, gen) -> dict:
             as_ = torch.rand(m, device="cuda", generator=gen) + 0.1
             bias = torch.randn(n, device="cuda", generator=gen)
             ms = {}
-            for p in PLANE_DEPTHS + (bits,):
+            for p in depths:
                 w = (stack[:p],)
                 dot = body.plain((x,), w, k)
                 acc = harness.gemm(body, (x,), w, None, None, k=k, out="acc")
@@ -474,9 +545,8 @@ def check_planes(body, cfg, flush, gen) -> dict:
                     if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
                         raise AssertionError(f"{body.name} {name} M={m} P={p} bias="
                                              f"{b is not None}: kernel != plain")
-                if m == SLOTS:
-                    ms[p] = time_ms(lambda: harness.gemm(body, (x,), w, ws, as_, k=k),
-                                    20, flush)
+                ms[p] = time_ms(lambda: harness.gemm(body, (x,), w, ws, as_, k=k),
+                                20, flush)
             codes = composed_codes(stack, k, bits)
             wd = codes.T.contiguous() if bits == 8 else pack.pack_int4(codes)
             if not torch.equal(acc, harness.gemm(direct, (x,), (wd,), None, None,
@@ -484,36 +554,83 @@ def check_planes(body, cfg, flush, gen) -> dict:
                 raise AssertionError(f"{body.name} {name} M={m}: P = {bits} "
                                      f"accumulator != {direct.name} accumulator")
             del wd
-            nbytes = m * k + stack.numel() * 4 + 4 * (m + n) + 2 * m * n
+
+            def nbytes(p):
+                return m * k + p * n * (k // 32) * 4 + 4 * (m + n) + 2 * m * n
+
             ops = 2.0 * m * n * k
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+            bound = max(nbytes(bits) / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
             msg = (f"[kernels] {body.name} {name:8s} M={m:3d} N={n:6d} K={k:5d} "
-                   f"P in {PLANE_DEPTHS + (bits,)}: bit-equal ok, P={bits} == "
-                   f"{direct.name}")
+                   f"P in {depths}: bit-equal ok, P={bits} == {direct.name}  kernel "
+                   + " / ".join(f"P={p} {t:.4f}" for p, t in ms.items()) + " ms")
             if m == SLOTS:
                 pms = time_ms(lambda: harness.requant(body.plain((x,), (stack,), k),
                                                       ws, as_, None).to(torch.bfloat16), 2)
-                msg += ("  kernel " + " / ".join(f"P={p} {t:.4f}" for p, t in ms.items())
-                        + f" ms  plain {pms:.3f} ms")
-                tick["ms"] += per_tick * ms[bits]
+                msg += f"  plain {pms:.3f} ms"
+                for p in depths:
+                    tick["ms"][p] += per_tick * ms[p]
+                    tick["bytes"][p] += per_tick * nbytes(p)
                 tick["plain_ms"] += per_tick * pms
-                tick["bytes"] += per_tick * nbytes
                 tick["ops"] += per_tick * ops
-            else:
+            elif m > 16:
                 wi = codes.T.contiguous()
                 lib = time_ms(lambda: torch._int_mm(x, wi), 20, flush)
-                kms = time_ms(lambda: harness.gemm(body, (x,), (stack,), ws, as_, k=k),
-                              20, flush)
-                msg += f"  kernel P={bits} {kms:.4f} ms  torch._int_mm {lib:.4f} ms"
+                msg += f"  torch._int_mm {lib:.4f} ms"
                 del wi
             log(msg + f"  bound {bound:.4f} ms")
             del codes, stack
-    t_bytes = tick["bytes"] / HBM_BYTES_PER_S
     t_ops = tick["ops"] / INT8_OPS_PER_S
-    return {"name": body.name, "max_abs_err": 0.0, "ms": tick["ms"],
-            "plain_ms": tick["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
+    bounds = {p: max(tick["bytes"][p] / HBM_BYTES_PER_S, t_ops) * 1e3 for p in depths}
+    log(f"[kernels] {body.name} {SLOTS}-slot decode tick, sum of launches timed one "
+        f"by one: " + "; ".join(f"P={p} {tick['ms'][p]:.3f} ms (bound {bounds[p]:.4f})"
+                                for p in depths)
+        + f"; P=1 / P={bits} = {tick['ms'][1] / tick['ms'][bits]:.3f}")
+    seq = tick_in_sequence(body, cfg, depths, flush, gen)
+    log(f"[kernels] {body.name} {SLOTS}-slot decode tick, its launches back to back "
+        f"over distinct per-layer weights: "
+        + "; ".join(f"P={p} {t:.3f} ms" for p, t in seq.items())
+        + f"; P=1 / P={bits} = {seq[1] / seq[bits]:.3f}")
+    t_bytes = tick["bytes"][bits] / HBM_BYTES_PER_S
+    return {"name": body.name, "max_abs_err": 0.0, "ms": tick["ms"][bits],
+            "plain_ms": tick["plain_ms"], "bound_ms": bounds[bits],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def tick_in_sequence(body, cfg, depths, flush, gen) -> dict:
+    """P -> device ms of one 4-slot decode tick's plane GEMMs launched back
+    to back, as a tick issues them: per layer qkv, out, up, down on that
+    layer's own random plane stack (so each launch finds its weights cold,
+    the whole model's 3.2 GB at 8 planes passing through L2), then lm_head;
+    the w4a8 tick's 26 body layers and no lm_head for the int4 body. One
+    span of CUDA events per tick, so the per-launch event cost of the sum
+    above is not in it."""
+    from repro_torch.kernels import harness
+    bits = body.w_stack
+    layers = []
+    for name, n, k, per_tick in gemm_shapes(cfg):
+        if bits == 4:
+            per_tick = 0 if name == "lm_head" else per_tick - 2
+        x = torch.randint(-127, 128, (SLOTS, k), dtype=torch.int8, device="cuda",
+                          generator=gen)
+        ws = torch.rand(n, device="cuda", generator=gen) * 0.1 + 1e-3
+        as_ = torch.rand(SLOTS, device="cuda", generator=gen) + 0.1
+        for _ in range(per_tick):
+            stack = torch.randint(-2 ** 31, 2 ** 31 - 1, (bits, n, k // 32),
+                                  dtype=torch.int32, device="cuda", generator=gen)
+            layers.append((x, stack, ws, as_, k))
+    # the tick's order: layer by layer, lm_head last
+    n_l = len(layers) // 4 if bits == 4 else (len(layers) - 1) // 4
+    order = [layers[j * n_l + i] for i in range(n_l) for j in range(4)] + layers[4 * n_l:]
+    out = {}
+    for p in depths:
+        def tick():
+            for x, stack, ws, as_, k in order:
+                harness.gemm(body, (x,), (stack[:p],), ws, as_, k=k)
+        out[p] = time_ms(tick, 3, flush, spin=TICK_SPIN_CYCLES)
+    del layers, order
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_paged(cfg, flush, gen) -> dict:
@@ -590,13 +707,14 @@ def check_paged(cfg, flush, gen) -> dict:
     return rec
 
 
-def check_flash(cfg, flush, gen) -> dict:
-    """Kernel vs plain for one layer's 256-token prefill attention (B = 1,
+def check_flash(cfg, flush, gen, t=256) -> dict:
+    """Kernel vs plain for one layer's T-token prefill attention (B = 1,
     24/8 heads, dh = 128, bf16, causal), with q/k/v the (B, T, H, dh) views
-    the model passes; returns the per-prefill record (28 layers)."""
+    the model passes, beside SDPA; returns the per-prefill record (28
+    layers)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn
-    b, t, h, hk, dh = 1, LONG_BUCKET, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, h, hk, dh = 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = (torch.randn((b, t, n, dh), device="cuda", generator=gen
                            ).to(torch.bfloat16).transpose(1, 2) for n in (h, hk, hk))
     got = flash_attn.flash_attention(q, k, v)
@@ -604,7 +722,7 @@ def check_flash(cfg, flush, gen) -> dict:
     err = (got.float() - want.float()).abs().max().item()
     tol = 3e-2                       # tests/test_flash_attn.py's bf16 bar
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-        raise AssertionError(f"flash attention: max abs err {err} outside "
+        raise AssertionError(f"flash attention T={t}: max abs err {err} outside "
                              f"rtol=atol={tol}")
     ms = time_ms(lambda: flash_attn.flash_attention(q, k, v), 50, flush)
     pms = time_ms(lambda: flash_attn.flash_attention_plain(q, k, v), 5)
@@ -622,7 +740,7 @@ def check_flash(cfg, flush, gen) -> dict:
         f"max abs err {err:.3e} (rtol=atol={tol})  kernel {ms:.4f} ms  plain "
         f"{pms:.3f} ms  bound {max(t_bytes, t_ops) * 1e3:.5f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})  sdpa (is_causal, "
-        f"K/V repeated to {h} heads) {lib:.4f} ms")
+        f"K/V repeated to {h} heads) {lib:.4f} ms  kernel / sdpa {ms / lib:.2f}")
     n = cfg.n_layers
     return {"name": "flash_attention", "max_abs_err": err, "ms": n * ms,
             "plain_ms": n * pms, "bound_ms": n * max(t_bytes, t_ops) * 1e3,
@@ -630,17 +748,28 @@ def check_flash(cfg, flush, gen) -> dict:
             "library_ms": n * lib}
 
 
+def launch_floor(flush) -> None:
+    """A one-element add_ timed as the kernels are: the floor under every
+    per-launch time of this phase."""
+    tiny = torch.zeros(1, device="cuda")
+    log(f"[kernels] launch floor (one-element add_, timed as the kernels are): "
+        f"{time_ms(lambda: tiny.add_(1), 50, flush):.4f} ms with L2 flushed, "
+        f"{time_ms(lambda: tiny.add_(1), 50):.4f} ms warm")
+
+
 def phase_kernels(cfg, recs: list) -> None:
     """Appends each kernel's record to `recs` as its check passes."""
     from repro_torch.kernels import BODIES
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.ones(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    launch_floor(flush)
     accs = {}
     for body in BODIES:              # popcount bodies before their mxu twins
         recs.append(check_planes(body, cfg, flush, gen) if body.w_stack
                     else check_gemm(body, cfg, flush, gen, accs))
     recs.append(check_paged(cfg, flush, gen))
-    recs.append(check_flash(cfg, flush, gen))
+    recs.append(check_flash(cfg, flush, gen, LONG_BUCKET))
+    check_flash(cfg, flush, gen, LONG_PROMPT)
     recs.append(check_grouped(flush, gen))
     log("[kernels] mxu accumulators == popcount accumulators at every shape")
 
@@ -848,6 +977,7 @@ def phase_serve(cfg0, device_name) -> dict:
     for policy, impl in PROFILED:
         profile_tick(cfgs[policy], (twins if impl == "planes" else packed)[policy],
                      device_name, impl)
+    profile_prefill(cfgs["het"], packed["het"], device_name)
     return total
 
 
@@ -996,6 +1126,52 @@ def profile_tick(cfg, sparams, device_name, impl="popcount") -> None:
         f"{device_name}; top: " + ", ".join(f"{n[:40]} {t:.3f} ms" for n, t in top))
 
 
+def profile_prefill(cfg, sparams, device_name) -> None:
+    """Time to first token of a 256-token prompt (one prefill of the whole
+    model, bucket 256, so every layer runs flash attention): host wall
+    time, device busy time from torch.profiler, and flash attention's
+    share of it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LONG_BUCKET)).astype(np.int32)
+                            ).to("cuda")
+    sp = transformer.build_specs(cfg)
+
+    def run():
+        transformer.prefill(sparams, toks, sp, ModelCtx())
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"[profile] {cfg.name} policy={cfg.policy}: {LONG_BUCKET}-token prefill "
+            f"{wall:.2f} ms wall; device time not measured (no device events)")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    flash = [e for e in kernels if "flash" in e.name]
+    fms = sum(e.time_range.elapsed_us() for e in flash) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[profile] {cfg.name} policy={cfg.policy}: {LONG_BUCKET}-token prefill "
+        f"{wall:.2f} ms wall, device busy {busy:.2f} ms ({100 * busy / wall:.1f} %), "
+        f"{len(kernels)} kernels; flash attention {len(flash)} launches {fms:.3f} ms "
+        f"({100 * fms / busy:.1f} % of busy) on {device_name}; top: "
+        + ", ".join(f"{n[:40]} {t:.3f} ms" for n, t in top))
+
+
 # -- driver ------------------------------------------------------------------
 
 def main() -> int:
@@ -1017,11 +1193,12 @@ def main() -> int:
             if launches.get(name, 0) == 0:
                 raise AssertionError(f"kernel {name} never launched on the serve path")
 
-    for phase, fn in (("build", phase_build),
-                      ("kernels", lambda: phase_kernels(cfg, recs)),
-                      ("serve", lambda: launches.update(phase_serve(cfg, device_name))),
-                      ("moe", lambda: phase_moe(device_name, launches)),
-                      ("launches", phase_launches)):
+    phases = (("build", phase_build),
+              ("kernels", lambda: phase_kernels(cfg, recs)),
+              ("serve", lambda: launches.update(phase_serve(cfg, device_name))),
+              ("moe", lambda: phase_moe(device_name, launches)),
+              ("launches", phase_launches))
+    for phase, fn in phases:
         t0 = time.perf_counter()
         try:
             fn()

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into `build/kernels/lib<name>-<hash>.so` at the repository root (the hash is
-over the source, so an edited kernel is rebuilt and a stale library is never
-loaded), then loaded with ctypes. Nothing is built or loaded at import: the
+over the source and the headers it may include, `csrc/*.cuh`, so an edited
+kernel is rebuilt and a stale library is never loaded), then loaded with
+ctypes. Nothing is built or loaded at import: the
 first launch builds, or `build_all()` builds every source at once with one
 `nvcc` per source running in parallel.
 
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    tag = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

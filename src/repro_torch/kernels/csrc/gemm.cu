@@ -27,7 +27,7 @@
 //   F_BITS      K/32 words, bit k of word j = operand 32j+k (1 encodes +1)
 //   F_TRITS     two F_BITS planes, mask (non-zero) and sign (negative)
 //   F_S4        K/8 words, nibble j of word i = s4 code 8i+j
-//   F_PLANES    a stack of P <= BITS binary planes (P, N, K/32), MSB-first
+//   planes      a stack of P <= BITS binary planes (P, N, K/32), MSB-first
 //               two's complement: plane 0 is the sign plane (coefficient
 //               -2^(BITS-1)), plane i has coefficient 2^(BITS-1-i); plane i
 //               of row n starts at w0 + i * plane_stride + n * K/32
@@ -42,29 +42,59 @@
 // row read as a word), so one __dp4a does four MACs. The tile load builds
 // those words: int8 rows are copied; K-major int8 weights are transposed
 // four columns at a time; bits, trits and nibbles are unpacked to ±1,
-// {-1, 0, +1} and sign-extended s4 bytes; the P live plane words of a plane
+// {-1, 0, +1} and sign-extended s4 bytes. The P live plane words of a plane
 // stack are composed into the codes sum_i coeff_i * bit_i (each fits an
-// int8, truncated or not: a missing plane contributes 0), so the __dp4a
-// loop's dot is integer-identical to the reference's per-plane sum
+// int8, truncated or not: a missing plane contributes 0), so the plane
+// kernels' dot is integer-identical to the reference's per-plane sum
 // sum_i coeff_i * (x . plane_i). The reference's MXU bodies dot the
 // unpacked values in f32 and cast; this port takes the integer dot, which
 // is the same number and equals the popcount bodies' dot bit for bit.
 //
-// Design. The TPU grid's sequential K axis becomes a loop inside the block:
-// a block owns one BM x BN output tile, walks K in KT-word stages through
-// shared memory (KT packed words = 1024 k for the popcount bodies, KT
-// four-code words = 128 k for the __dp4a bodies), and keeps its int32
-// accumulators in registers. Each warp owns one output column per lane and
-// rows warp, warp+4, ... of the tile; rows past M are skipped warp-uniformly
-// and columns past N are masked, so ragged M and N need no padding (the
-// Pallas path pads M to 8).
+// Design of gemm_kernel (every body but the two plane bodies). The TPU
+// grid's sequential K axis becomes a loop inside the block: a block owns one
+// BM x BN output tile, walks K in KT-word stages through shared memory (KT
+// packed words = 1024 k for the popcount bodies, KT four-code words = 128 k
+// for the __dp4a bodies), and keeps its int32 accumulators in registers.
+// Each warp owns one output column per lane and rows warp, warp+4, ... of
+// the tile; rows past M are skipped warp-uniformly and columns past N are
+// masked, so ragged M and N need no padding (the Pallas path pads M to 8).
 //
 // Bound. At decode (M = 4..32 rows) every weight word is used by only M
 // rows, so the kernel is bound by the bytes of the packed weights (1, 2, 4
-// or 8 bits per weight), far below the integer-op roof. This first version
+// or 8 bits per weight), far below the integer-op roof. gemm_kernel
 // coalesces the weight loads and keeps the tile small (BN = 32) so that the
-// N/32 blocks spread over all SMs; it does not yet pipeline the loads
-// (cp.async/TMA) or use the int8 tensor cores (mma/wgmma) — later work.
+// N/32 blocks spread over all SMs; it does not pipeline the loads (32-word
+// stages, two barriers each, one load in flight per thread) or use the int8
+// tensor cores: the seven bodies it still runs are later redesigns.
+//
+// The plane bodies (K10, BODY_PLANES_W4 / W8) run two kernels of their own,
+// chosen by M, both composing the live plane words into int8 codes with one
+// in-register bit transpose (`planes_to_codes`: 8 words of four codes from 8
+// plane words in ~72 integer ops at 8 planes, fewer at fewer live planes):
+// - M <= 8 (decode and draft rows: 4 slots): `planes_stream_kernel`. Bytes
+//   bound it at 8 planes (each plane word feeds at most 8 rows); at 1-2
+//   planes the __dp4a work (M per four codes) is as large, and a 5-8.5 us
+//   floor per launch (an empty kernel's, timed the same way) is over half a
+//   small layer's time. Persistent blocks stage the activations once (M x K
+//   bytes, in the transpose's k-interleaved order so the codes need no
+//   reordering, each 128-byte k-quad's 16-byte pieces rotated so the 8 lanes
+//   that split a column's K read distinct banks) and stream the plane words
+//   with 16-byte loads, the next item's (4 to 8 loads per lane) in flight
+//   while this one is composed and multiplied, with no shared-memory round
+//   trip for the weights and no barrier after the staging. The 8 lanes of a
+//   column add their int32 sums with shuffles (exact in any order). Time
+//   follows the live plane bytes where they dominate: a P = 1 lm_head reads
+//   1/8 of the words of a P = 8 one.
+// - M > 8 (verify rows, the prefill buckets): `planes_mma_kernel`, a 128 x 64
+//   tile on the int8 tensor cores (mma.sync m16n8k32 s8, 8 warps of 32 x 32),
+//   which measured faster than the streaming kernel from 13 rows on.
+//   Composing the codes bounds it (2*M*N*K MACs cost the tensor cores little
+//   against ~11 ops per 4 codes, once per 128 rows). A 3-stage cp.async ring
+//   stages the activation tile and the raw plane words 128 k at a time; each
+//   stage the 256 threads compose one (column, plane word) each, in k order
+//   (`compose_word`), into a padded int8 tile that ldmatrix reads, so every
+//   code is composed once per block.
+// Both give the int32 dot of the reference's per-plane sum bit for bit.
 //
 // Groups (K11). `repro_gemm_grouped` runs G independent GEMMs of one shape
 // in one launch, the grid's third dimension over the groups: every operand
@@ -85,6 +115,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int BM = 16;        // output rows per block
@@ -97,7 +131,7 @@ constexpr int RPT = BM / WARPS;  // rows per thread
 enum { BODY_I8 = 0, BODY_BINARY = 1, BODY_TERNARY = 2, BODY_BINARY_MXU = 3,
        BODY_TERNARY_MXU = 4, BODY_TERNARY_W_I8A = 5, BODY_INT4_W_I8A = 6,
        BODY_PLANES_W4 = 7, BODY_PLANES_W8 = 8 };
-enum { F_I8, F_I8_KMAJOR, F_BITS, F_TRITS, F_S4, F_PLANES };
+enum { F_I8, F_I8_KMAJOR, F_BITS, F_TRITS, F_S4 };
 enum { MAC_XNOR, MAC_GXNOR, MAC_DP4A };
 
 template <int MAC> struct Mac;
@@ -128,17 +162,15 @@ template <> struct Mac<MAC_DP4A> {
   __device__ static int finish(const int* acc, int) { return acc[0]; }
 };
 
-// BITS: planes of a full F_PLANES weight stack (0 for the other formats)
+// the bodies of gemm_kernel (the plane bodies run the kernels further down)
 template <int BODY> struct Body;
-template <> struct Body<BODY_I8>            { static constexpr int XF = F_I8,    WF = F_I8_KMAJOR, MAC = MAC_DP4A,  BITS = 0; };
-template <> struct Body<BODY_BINARY>        { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_XNOR,  BITS = 0; };
-template <> struct Body<BODY_TERNARY>       { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_GXNOR, BITS = 0; };
-template <> struct Body<BODY_BINARY_MXU>    { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_DP4A,  BITS = 0; };
-template <> struct Body<BODY_TERNARY_MXU>   { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_DP4A,  BITS = 0; };
-template <> struct Body<BODY_TERNARY_W_I8A> { static constexpr int XF = F_I8,    WF = F_TRITS,     MAC = MAC_DP4A,  BITS = 0; };
-template <> struct Body<BODY_INT4_W_I8A>    { static constexpr int XF = F_I8,    WF = F_S4,        MAC = MAC_DP4A,  BITS = 0; };
-template <> struct Body<BODY_PLANES_W4>     { static constexpr int XF = F_I8,    WF = F_PLANES,    MAC = MAC_DP4A,  BITS = 4; };
-template <> struct Body<BODY_PLANES_W8>     { static constexpr int XF = F_I8,    WF = F_PLANES,    MAC = MAC_DP4A,  BITS = 8; };
+template <> struct Body<BODY_I8>            { static constexpr int XF = F_I8,    WF = F_I8_KMAJOR, MAC = MAC_DP4A;  };
+template <> struct Body<BODY_BINARY>        { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_XNOR;  };
+template <> struct Body<BODY_TERNARY>       { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_GXNOR; };
+template <> struct Body<BODY_BINARY_MXU>    { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_DP4A;  };
+template <> struct Body<BODY_TERNARY_MXU>   { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_DP4A;  };
+template <> struct Body<BODY_TERNARY_W_I8A> { static constexpr int XF = F_I8,    WF = F_TRITS,     MAC = MAC_DP4A;  };
+template <> struct Body<BODY_INT4_W_I8A>    { static constexpr int XF = F_I8,    WF = F_S4,        MAC = MAC_DP4A;  };
 
 // K elements per stored 32-bit word of a (row-major) format
 template <int F> struct Fmt { static constexpr int K_PER_WORD = F == F_S4 ? 8 : F == F_I8 ? 4 : 32; };
@@ -174,36 +206,15 @@ __device__ __forceinline__ uint32_t unpack_s4x4(uint32_t nib) {
   return word4(v[0], v[1], v[2], v[3]);
 }
 
-// Four bits of a word (its low nibble) spread to the low bit of four bytes.
-__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
-  return ((nib & 0xFu) * 0x00204081u) & 0x01010101u;
-}
-
-// Four int8 codes, bits sh..sh+3 of each plane word composed as
-// sum_i coeff_i * bit_i. Byte-wise: the sign plane adds -2^(BITS-1) mod 256
-// (0x80 for 8 bits, 0xF8 = -8 for 4 bits: the sign-extended byte), plane i
-// sets bit BITS-1-i; the fields are disjoint, so no carry crosses a byte.
-// A truncated stack's missing planes are zero words and add nothing.
-template <int BITS>
-__device__ __forceinline__ uint32_t compose_planes4(const uint32_t* pw, int sh) {
-  constexpr uint32_t SIGN = (0x100u - (1u << (BITS - 1))) & 0xFFu;
-  uint32_t v = spread4(pw[0] >> sh) * SIGN;
-#pragma unroll
-  for (int i = 1; i < BITS; ++i) v |= spread4(pw[i] >> sh) << (BITS - 1 - i);
-  return v;
-}
-
 // Stage words ku0 .. ku0+KT-1 (in the MAC's units) of rows r0 .. r0+R-1 of
 // one operand into dst[plane][row][word]. Rows past `nrows` and words past
 // K are zero: they are never read by the MAC loop (it stops at K) and a zero
-// row only feeds outputs that are never written. For F_PLANES, `np` live
-// planes of BITS lie `pstride` words apart.
-template <int F, int MAC, int P, int R, int BITS = 0>
+// row only feeds outputs that are never written.
+template <int F, int MAC, int P, int R>
 __device__ __forceinline__ void stage_rows(uint32_t (*dst)[R][KT + 1],
                                            const uint32_t* s0, const uint32_t* s1,
                                            int r0, int nrows, int ku0, int K,
-                                           int tid, int np = 0,
-                                           long long pstride = 0) {
+                                           int tid) {
   constexpr int KPW = Fmt<F>::K_PER_WORD;          // k per source word
   constexpr int KPU = Mac<MAC>::K_PER_WORD;        // k per staged word
   const int W = K / KPW;                           // source words per row
@@ -223,16 +234,6 @@ __device__ __forceinline__ void stage_rows(uint32_t (*dst)[R][KT + 1],
       const int r = i / SW, c = i % SW, kw = ku0 / Q + c;
       const bool ok = r < nrows && kw < W;
       const size_t off = (size_t)(r0 + r) * W + kw;
-      if constexpr (F == F_PLANES) {
-        uint32_t pw[BITS];
-#pragma unroll
-        for (int i = 0; i < BITS; ++i)
-          pw[i] = ok && i < np ? s0[(size_t)i * pstride + off] : 0u;
-#pragma unroll
-        for (int j = 0; j < Q; ++j)
-          dst[0][r][c * Q + j] = ok ? compose_planes4<BITS>(pw, 4 * j) : 0u;
-        continue;
-      }
       const uint32_t a = ok ? s0[off] : 0u;
       uint32_t b = 0u;
       if constexpr (F == F_TRITS) b = ok ? s1[off] : 0u;
@@ -246,6 +247,24 @@ __device__ __forceinline__ void stage_rows(uint32_t (*dst)[R][KT + 1],
       }
     }
   }
+}
+
+// The fused epilogue for output (m, n) at out[idx]: the raw int32 dot, or
+// ((float)dot * w_scale[n]) * a_scale[m] + bias[n] rounded to bf16, in the
+// reference's order with no FMA contraction.
+__device__ __forceinline__ void store_out(void* out, int out_acc, size_t idx,
+                                          int dot, const float* w_scale,
+                                          const float* a_scale,
+                                          const float* bias, int m, int n) {
+  if (out_acc) {
+    static_cast<int*>(out)[idx] = dot;
+    return;
+  }
+  float y = __int2float_rn(dot);
+  if (w_scale) y = __fmul_rn(y, w_scale[n]);
+  if (a_scale) y = __fmul_rn(y, a_scale[m]);
+  if (bias) y = __fadd_rn(y, bias[n]);
+  static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
 }
 
 // K-major (K, N) int8 weights: load 4 columns of one k row as a word
@@ -273,8 +292,8 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
             const uint32_t* __restrict__ w0, const uint32_t* __restrict__ w1,
             const float* __restrict__ w_scale, const float* __restrict__ a_scale,
             const float* __restrict__ bias, void* __restrict__ out, int out_acc,
-            int M, int N, int K, int w_planes, long long w_plane_stride,
-            long long x_group_words, long long w_group_words) {
+            int M, int N, int K, long long x_group_words,
+            long long w_group_words) {
   using B = Body<BODY>;
   using C = Mac<B::MAC>;
   // this block's group member: offset every operand by the group's stride
@@ -307,8 +326,8 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
     if constexpr (B::WF == F_I8_KMAJOR)
       stage_kmajor(ws, w0, n0, N, ku0, K, tid);
     else
-      stage_rows<B::WF, B::MAC, C::PLANES, BN, B::BITS>(
-          ws, w0, w1, n0, min(BN, N - n0), ku0, K, tid, w_planes, w_plane_stride);
+      stage_rows<B::WF, B::MAC, C::PLANES, BN>(ws, w0, w1, n0, min(BN, N - n0),
+                                               ku0, K, tid);
     __syncthreads();
 
     const int kt = min(KT, KU - ku0);
@@ -337,17 +356,477 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
     const int r = warp + i * WARPS;
     if (r >= rows) continue;
     const int m = m0 + r;
-    const int dot = C::finish(acc[i], K);
-    if (out_acc) {
-      static_cast<int*>(out)[obase + (size_t)m * N + n] = dot;
+    store_out(out, out_acc, obase + (size_t)m * N + n, C::finish(acc[i], K),
+              w_scale, a_scale, bias, m, n);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K10: the plane bodies
+// ---------------------------------------------------------------------------
+
+// A 4 x 4 byte transpose: byte i of o[L] is byte L of in[i].
+__device__ __forceinline__ void transpose4x4(uint32_t i0, uint32_t i1, uint32_t i2,
+                                             uint32_t i3, uint32_t* o) {
+  const uint32_t a0 = __byte_perm(i0, i1, 0x5140);
+  const uint32_t a1 = __byte_perm(i0, i1, 0x7362);
+  const uint32_t a2 = __byte_perm(i2, i3, 0x5140);
+  const uint32_t a3 = __byte_perm(i2, i3, 0x7362);
+  o[0] = __byte_perm(a0, a2, 0x5410);
+  o[1] = __byte_perm(a0, a2, 0x7632);
+  o[2] = __byte_perm(a1, a3, 0x5410);
+  o[3] = __byte_perm(a1, a3, 0x7632);
+}
+
+// One 32-k word of each live plane (pw[i]: plane i, MSB-first; bit k of the
+// word belongs to the k-th weight) -> the 32 int8 codes sum_i coeff_i *
+// bit_i, as eight words in k-interleaved order: byte L of w[r] is the code
+// of k = 8L + r. Plane i lands on bit BITS-1-i of the code byte, and the
+// sign plane's bit BITS-1 is sign-extended (a no-op at 8 bits, where bit 7
+// of an int8 already weighs -128). Planes at or past NP are zero words and
+// add nothing, which is the truncated stack.
+//
+// Per byte lane of the eight words w[r] (row r = plane BITS-1-r, or zero)
+// the 8x8 bit matrix is transposed by three block swaps (4-, 2- and 1-bit
+// fields).
+template <int BITS, int NP>
+__device__ __forceinline__ void planes_to_codes(const uint32_t* pw, uint32_t* w) {
+  static_assert(BITS == 4 || BITS == 8, "4- or 8-bit plane stacks");
+  static_assert(NP >= 1 && NP <= BITS, "1 <= live planes <= BITS");
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = BITS - 1 - r;
+    w[r] = (i >= 0 && i < NP) ? pw[i] : 0u;
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const uint32_t t = ((w[r] >> 4) ^ w[r + 4]) & 0x0F0F0F0Fu;
+    w[r + 4] ^= t;
+    w[r] ^= t << 4;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (i & 1) + 4 * (i >> 1);             // 0, 1, 4, 5
+    const uint32_t t = ((w[r] >> 2) ^ w[r + 2]) & 0x33333333u;
+    w[r + 2] ^= t;
+    w[r] ^= t << 2;
+  }
+#pragma unroll
+  for (int r = 0; r < 8; r += 2) {
+    const uint32_t t = ((w[r] >> 1) ^ w[r + 1]) & 0x55555555u;
+    w[r + 1] ^= t;
+    w[r] ^= t << 1;
+  }
+  if constexpr (BITS == 4) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) w[r] |= (w[r] & 0x08080808u) * 0x1Fu;
+  }
+}
+
+// The k-interleaved order of planes_to_codes <-> k order (words of four
+// consecutive k, little-endian, like an int8 activation row read as words):
+// a 4x4 byte transpose of words {0..3} and of {4..7}, in either direction.
+// to_k: out[j] holds k = 4j .. 4j+3 of the interleaved in[]; otherwise
+// out[] is the interleaved form of the k-ordered in[].
+template <bool TO_K>
+__device__ __forceinline__ void interleave32(const uint32_t* in, uint32_t* out) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t t[4];
+    if constexpr (TO_K) {
+      transpose4x4(in[4 * h], in[4 * h + 1], in[4 * h + 2], in[4 * h + 3], t);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) out[2 * l + h] = t[l];
     } else {
-      float y = __int2float_rn(dot);
-      if (w_scale) y = __fmul_rn(y, w_scale[n]);
-      if (a_scale) y = __fmul_rn(y, a_scale[m]);
-      if (bias) y = __fadd_rn(y, bias[n]);
-      static_cast<__nv_bfloat16*>(out)[obase + (size_t)m * N + n] = __float2bfloat16_rn(y);
+      transpose4x4(in[h], in[2 + h], in[4 + h], in[6 + h], t);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) out[4 * h + l] = t[l];
     }
   }
+}
+
+// planes_to_codes in k order: out[j] holds the codes of k = 4j .. 4j+3.
+template <int BITS, int NP>
+__device__ __forceinline__ void compose_word(const uint32_t* pw, uint32_t* out) {
+  uint32_t w[8];
+  planes_to_codes<BITS, NP>(pw, w);
+  interleave32<true>(w, out);
+}
+
+// d += a (16 x 32 s8, row) . b (32 x 8 s8, col), int32 accumulators
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows up to which planes_stream_kernel runs: measured on the card, the
+// tensor-core kernel is faster from 13 rows on at every llama3.2-3b shape
+constexpr int SMALL_M = 8;
+
+// -- small M: stream the plane words ----------------------------------------
+
+constexpr int S_THREADS = 128;
+constexpr int S_KL = 8;               // lanes of a column, splitting K
+constexpr int S_COLS = S_THREADS / S_KL;   // columns per tile, 4 per warp
+constexpr int S_XMAX = 64 * 1024;     // staged activations: M x K bytes at most
+
+// Four plane words (one 16-byte k-quad, 128 k) of one plane row; zero when
+// !ok. `vec`: the stack's rows are 16-byte aligned (K % 128 == 0).
+__device__ __forceinline__ uint4 load_quad(const uint32_t* row, int q, int kw,
+                                           bool ok, int vec) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (ok) {
+    if (vec) {
+      v = __ldg(reinterpret_cast<const uint4*>(row) + q);
+    } else {
+      const int w = 4 * q;
+      v.x = __ldg(row + w);
+      if (w + 1 < kw) v.y = __ldg(row + w + 1);
+      if (w + 2 < kw) v.z = __ldg(row + w + 2);
+      if (w + 3 < kw) v.w = __ldg(row + w + 3);
+    }
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lane_of(const uint4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// M <= MS rows (MS = 4 or 8), NP live planes of a BITS-plane stack.
+// Persistent blocks walk 16-column tiles blockIdx.x, + gridDim.x, ...; lane
+// 4 kl + c of a warp (column c of its 4, k-lane kl) takes the k-quads kl,
+// kl + 8, ... of column c, U of them (x NP planes of 16-byte loads) per
+// item, so that a quarter-warp reads the activations of two k-quads, each
+// broadcast to 4 lanes. The walk is
+// a stream of items (tile, batch of U quads), and the next item's loads are
+// issued before this item's codes are composed and multiplied, so one item
+// of loads is always in flight; the first item's loads also overlap the
+// staging of the activations, which happens once per block (M x K bytes in
+// dynamic shared memory, each 32 k in planes_to_codes' k-interleaved order,
+// so that a lane multiplies the transposed codes without putting them back
+// in k order; each 128-byte k-quad's eight 16-byte pieces rotated by the
+// quad index so that different k-lanes read distinct banks).
+template <int BITS, int NP, int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+planes_stream_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ w,
+                     const float* __restrict__ w_scale,
+                     const float* __restrict__ a_scale,
+                     const float* __restrict__ bias, void* __restrict__ out,
+                     int out_acc, int M, int N, int K, long long pstride, int vec) {
+  constexpr int U = NP >= 4 ? 1 : 4 / NP;       // quads per item: 4-8 loads
+  extern __shared__ uint4 xs[];                 // [M][nq * 8] pieces
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kl = lane / (32 / S_KL), col = warp * (32 / S_KL) + lane % (32 / S_KL);
+  const int kw = K / 32, nq = (kw + 3) / 4;
+  const int nb = ((nq + S_KL - 1) / S_KL + U - 1) / U;   // items per tile
+  const int tiles = (N + S_COLS - 1) / S_COLS;
+  const int my_tiles = tiles > (int)blockIdx.x
+                           ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int items = my_tiles * nb;
+
+  // item it: tile blockIdx.x + (it / nb) * gridDim.x, quads kl + 8 (U b + u)
+  auto column = [&](int it) {
+    return ((int)blockIdx.x + (it / nb) * (int)gridDim.x) * S_COLS + col;
+  };
+  auto load_item = [&](int it, uint4 (&buf)[U][NP]) {
+    const int n = column(it), q0 = kl + S_KL * U * (it % nb);
+    const uint32_t* wn = w + (size_t)(n < N ? n : 0) * kw;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + S_KL * u;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        buf[u][p] = load_quad(wn + p * pstride, q, kw, n < N && q < nq, vec);
+    }
+  };
+  int acc[MS];
+#pragma unroll
+  for (int m = 0; m < MS; ++m) acc[m] = 0;
+  auto run_item = [&](int it, const uint4 (&buf)[U][NP]) {
+    const int q0 = kl + S_KL * U * (it % nb);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int q = q0 + S_KL * u;
+      if (q >= nq) break;
+      const uint4* xq = xs + q * 8;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {               // plane word e: k 32e..32e+31
+        uint32_t pw[NP], cw[8];                   // codes, k-interleaved like xs
+#pragma unroll
+        for (int p = 0; p < NP; ++p) pw[p] = lane_of(buf[u][p], e);
+        planes_to_codes<BITS, NP>(pw, cw);
+#pragma unroll
+        for (int m = 0; m < MS; ++m) {
+          if (m < M) {                            // warp-uniform
+            const uint4 xa = xq[m * nq * 8 + ((2 * e + q) & 7)];
+            const uint4 xb = xq[m * nq * 8 + ((2 * e + 1 + q) & 7)];
+            int a = acc[m];
+            a = __dp4a(static_cast<int>(xa.x), static_cast<int>(cw[0]), a);
+            a = __dp4a(static_cast<int>(xa.y), static_cast<int>(cw[1]), a);
+            a = __dp4a(static_cast<int>(xa.z), static_cast<int>(cw[2]), a);
+            a = __dp4a(static_cast<int>(xa.w), static_cast<int>(cw[3]), a);
+            a = __dp4a(static_cast<int>(xb.x), static_cast<int>(cw[4]), a);
+            a = __dp4a(static_cast<int>(xb.y), static_cast<int>(cw[5]), a);
+            a = __dp4a(static_cast<int>(xb.z), static_cast<int>(cw[6]), a);
+            a = __dp4a(static_cast<int>(xb.w), static_cast<int>(cw[7]), a);
+            acc[m] = a;
+          }
+        }
+      }
+    }
+    if (it % nb != nb - 1) return;
+    // the tile's last item: the 8 k-lanes of a column add their partial
+    // sums (exact in any order), and k-lane m stores row m
+#pragma unroll
+    for (int m = 0; m < MS; ++m) {
+      int a = acc[m];
+#pragma unroll
+      for (int o = 32 / S_KL; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      acc[m] = 0;
+      const int n = column(it);
+      if (n < N && m < M && m == kl)
+        store_out(out, out_acc, (size_t)m * N + n, a, w_scale, a_scale, bias, m, n);
+    }
+  };
+
+  uint4 ba[U][NP], bb[U][NP];
+  if (items > 0) load_item(0, ba);
+  // 32 k at a time, in planes_to_codes' k-interleaved order, as two pieces
+  for (int i = tid; i < M * nq * 4; i += S_THREADS) {
+    const int m = i / (nq * 4), bk = i % (nq * 4), kq = bk >> 2, e = bk & 3;
+    uint32_t v[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}, t[8];
+    if (bk * 32 < K) {
+      const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)m * K + bk * 32);
+      const uint4 a = src[0], b = src[1];
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+    interleave32<false>(v, t);
+    uint4* row = xs + m * nq * 8 + kq * 8;
+    row[(2 * e + kq) & 7] = make_uint4(t[0], t[1], t[2], t[3]);
+    row[(2 * e + 1 + kq) & 7] = make_uint4(t[4], t[5], t[6], t[7]);
+  }
+  __syncthreads();
+  // two register buffers, unrolled by hand so neither is indexed at run time
+  for (int it = 0; it < items; it += 2) {
+    if (it + 1 < items) load_item(it + 1, bb);
+    run_item(it, ba);
+    if (it + 1 >= items) break;
+    if (it + 2 < items) load_item(it + 2, ba);
+    run_item(it + 1, bb);
+  }
+}
+
+// -- large M: the int8 tensor cores -----------------------------------------
+
+constexpr int T_THREADS = 256;     // 8 warps: 4 along M x 2 along N, 32 x 32 each
+constexpr int T_BM = 128, T_BN = 64;
+constexpr int T_KS = 128;          // k per stage: 4 plane words
+constexpr int T_STAGES = 3;
+constexpr int T_LD = T_KS + 16;    // padded row, bytes: ldmatrix's 8 rows in distinct banks
+
+template <int BITS>
+constexpr int tc_smem_bytes() {
+  return T_STAGES * (T_BM * T_LD + BITS * T_BN * 16) + T_BN * T_LD;
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(T_THREADS, 2)
+planes_mma_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ w,
+                  const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                  const float* __restrict__ bias, void* __restrict__ out, int out_acc,
+                  int M, int N, int K, int np, long long pstride, int vec) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* As = smem;                                          // [S][BM][LD]
+  // [S][BITS][BN][4] plane words
+  uint32_t* Ws = reinterpret_cast<uint32_t*>(smem + T_STAGES * T_BM * T_LD);
+  uint8_t* Bc = smem + T_STAGES * (T_BM * T_LD + BITS * T_BN * 16);           // [BN][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int m0 = blockIdx.y * T_BM, n0 = blockIdx.x * T_BN;
+  const int kw = K / 32, nst = (K + T_KS - 1) / T_KS;
+
+  auto load_stage = [&](int st, int buf) {
+    const int k0 = st * T_KS;
+    for (int i = tid; i < T_BM * (T_KS / 16); i += T_THREADS) {
+      const int r = i / (T_KS / 16), c = i % (T_KS / 16), m = m0 + r, k = k0 + 16 * c;
+      const bool ok = m < M && k < K;
+      cp_async16(As + (buf * T_BM + r) * T_LD + 16 * c,
+                 ok ? x + (size_t)m * K + k : x, ok ? 16 : 0);
+    }
+    const int kw0 = k0 / 32;
+    for (int i = tid; i < np * T_BN; i += T_THREADS) {
+      const int p = i / T_BN, c = i % T_BN, n = n0 + c;
+      uint32_t* dst = Ws + ((buf * BITS + p) * T_BN + c) * 4;
+      const uint32_t* src = w + p * pstride + (size_t)n * kw + kw0;
+      if (vec) {
+        const bool ok = n < N && kw0 < kw;
+        cp_async16(dst, ok ? src : w, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = n < N && kw0 + e < kw;
+          cp_async4(dst + e, ok ? src + e : w, ok ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0;
+
+#pragma unroll
+  for (int s = 0; s < T_STAGES - 1; ++s) {
+    if (s < nst) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    const int buf = st % T_STAGES;
+    cp_async_wait<T_STAGES - 2>();        // this stage's copies have landed
+    __syncthreads();                      // ... everyone's; the last stage is consumed
+    {
+      // compose: thread = (column c, plane word e) -> 32 codes of column c
+      const int c = tid >> 2, e = tid & 3;
+      uint32_t pw[BITS], cw[8];
+#pragma unroll
+      for (int p = 0; p < BITS; ++p)
+        pw[p] = p < np ? Ws[((buf * BITS + p) * T_BN + c) * 4 + e] : 0u;
+      compose_word<BITS, BITS>(pw, cw);
+      uint4* d = reinterpret_cast<uint4*>(Bc + c * T_LD + 32 * e);
+      d[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
+      d[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
+    }
+    {
+      const int nx = st + T_STAGES - 1;   // into the buffer the last stage freed
+      if (nx < nst) load_stage(nx, nx % T_STAGES);
+      cp_async_commit();
+    }
+    __syncthreads();                      // the composed tile is complete
+    const uint8_t* A = As + buf * T_BM * T_LD;
+#pragma unroll
+    for (int ks = 0; ks < T_KS / 32; ++ks) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_x4(af[mt], A + (wm * 32 + mt * 16 + (lane & 15)) * T_LD + 32 * ks +
+                            16 * (lane >> 4));
+#pragma unroll
+      for (int nt = 0; nt < 4; nt += 2) {
+        uint32_t r[4];
+        ldsm_x4(r, Bc + (wn * 32 + nt * 8 + (lane & 7) + 8 * (lane >> 4)) * T_LD +
+                       32 * ks + 16 * ((lane >> 3) & 1));
+        bf[nt][0] = r[0];
+        bf[nt][1] = r[1];
+        bf[nt + 1][0] = r[2];
+        bf[nt + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+    }
+  }
+
+  // accumulator fragment: c0, c1 at (row g, columns 2t, 2t+1), c2, c3 at row g + 8
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm * 32 + mt * 16 + g + 8 * (e >> 1);
+        const int n = n0 + wn * 32 + nt * 8 + 2 * t4 + (e & 1);
+        if (m < M && n < N)
+          store_out(out, out_acc, (size_t)m * N + n, acc[mt][nt][e], w_scale,
+                    a_scale, bias, m, n);
+      }
+}
+
+// the streaming kernel for np live planes (a compile-time NP): persistent
+// blocks, as many as fit on the card at once, none more than the tiles.
+// The shared-memory limit and the blocks that fit at each staged size are
+// worked out at first use, not per launch: a decode tick launches this ~100
+// times, and each runtime query costs host time that the tick waits for.
+// One card per process (the serve path's).
+template <int BITS, int MS, int NP = 1>
+int launch_stream(int np, const uint8_t* x, const uint32_t* w, const float* w_scale,
+                  const float* a_scale, const float* bias, void* out, int out_acc,
+                  int M, int N, int K, long long pstride, int vec,
+                  cudaStream_t stream) {
+  if constexpr (NP > BITS) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (np != NP)
+      return launch_stream<BITS, MS, NP + 1>(np, x, w, w_scale, a_scale, bias, out,
+                                             out_acc, M, N, K, pstride, vec, stream);
+    auto* kernel = planes_stream_kernel<BITS, NP, MS>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S_XMAX);
+    if (attr != cudaSuccess) return (int)attr;
+    const int smem = M * ((K / 32 + 3) / 4) * 128;   // <= S_XMAX (launch_planes)
+    static std::atomic<int> fit[S_XMAX / 128 + 1];   // smem / 128 -> blocks
+    int blocks = fit[smem / 128].load(std::memory_order_relaxed);
+    if (blocks == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S_THREADS,
+                                                          smem);
+      if (e != cudaSuccess) return (int)e;
+      blocks = max(1, per_sm) * sms;
+      fit[smem / 128].store(blocks, std::memory_order_relaxed);
+    }
+    const int tiles = (N + S_COLS - 1) / S_COLS;
+    const dim3 grid(min(tiles, blocks));
+    kernel<<<grid, S_THREADS, smem, stream>>>(x, w, w_scale, a_scale, bias, out,
+                                              out_acc, M, N, K, pstride, vec);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <int BITS>
+int launch_planes(const void* x0, const void* w0, const float* w_scale,
+                  const float* a_scale, const float* bias, void* out, int out_acc,
+                  int M, int N, int K, int np, long long pstride,
+                  cudaStream_t stream) {
+  const auto* x = static_cast<const uint8_t*>(x0);
+  const auto* w = static_cast<const uint32_t*>(w0);
+  if (np < 1 || np > BITS || K % 32) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16) return (int)cudaErrorMisalignedAddress;
+  const int vec = K % 128 == 0 && pstride % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  // the streaming kernel stages all M x K activation bytes; past S_XMAX the
+  // tensor-core kernel takes the few rows too
+  if (M <= SMALL_M && (long long)M * ((K / 32 + 3) / 4) * 128 <= S_XMAX) {
+    if (M <= 4)
+      return launch_stream<BITS, 4>(np, x, w, w_scale, a_scale, bias, out, out_acc,
+                                    M, N, K, pstride, vec, stream);
+    return launch_stream<BITS, SMALL_M>(np, x, w, w_scale, a_scale, bias, out,
+                                        out_acc, M, N, K, pstride, vec, stream);
+  }
+  constexpr int smem = tc_smem_bytes<BITS>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      planes_mma_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((N + T_BN - 1) / T_BN, (M + T_BM - 1) / T_BM);
+  planes_mma_kernel<BITS><<<grid, T_THREADS, smem, stream>>>(
+      x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, np, pstride, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -363,8 +842,7 @@ extern "C" void repro_gemm_tile(int* bm, int* bn, int* kt) {
 static int launch(int body, int groups, const void* x0, const void* x1,
                   const void* w0, const void* w1, const float* w_scale,
                   const float* a_scale, const float* bias, void* out,
-                  int out_acc, int M, int N, int K, int w_planes,
-                  long long w_plane_stride, long long x_group_words,
+                  int out_acc, int M, int N, int K, long long x_group_words,
                   long long w_group_words, cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, groups);
   const auto* a0 = static_cast<const uint32_t*>(x0);
@@ -375,7 +853,7 @@ static int launch(int body, int groups, const void* x0, const void* x1,
   case ID:                                                                    \
     gemm_kernel<ID><<<grid, THREADS, 0, stream>>>(                            \
         a0, a1, b0, b1, w_scale, a_scale, bias, out, out_acc, M, N, K,        \
-        w_planes, w_plane_stride, x_group_words, w_group_words);              \
+        x_group_words, w_group_words);                                        \
     break;
   switch (body) {
     LAUNCH(BODY_I8)
@@ -385,8 +863,6 @@ static int launch(int body, int groups, const void* x0, const void* x1,
     LAUNCH(BODY_TERNARY_MXU)
     LAUNCH(BODY_TERNARY_W_I8A)
     LAUNCH(BODY_INT4_W_I8A)
-    LAUNCH(BODY_PLANES_W4)
-    LAUNCH(BODY_PLANES_W8)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -399,18 +875,23 @@ static int launch(int body, int groups, const void* x0, const void* x1,
 // K: the contraction length in elements (a multiple of every side's
 // storage unit; the wrapper checks). w_planes / w_plane_stride: the live
 // planes P (1 <= P <= the body's BITS) of a plane-stacked weight and the
-// words between two planes; ignored by the other bodies.
+// words between two planes; ignored by the other bodies. The plane bodies
+// run planes_stream_kernel up to SMALL_M rows and planes_mma_kernel above;
+// their activation rows must be 16-byte aligned.
 extern "C" int repro_gemm(int body, const void* x0, const void* x1,
                           const void* w0, const void* w1, const float* w_scale,
                           const float* a_scale, const float* bias, void* out,
                           int out_acc, int M, int N, int K, int w_planes,
                           long long w_plane_stride, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if ((body == BODY_PLANES_W4 && (w_planes < 1 || w_planes > 4)) ||
-      (body == BODY_PLANES_W8 && (w_planes < 1 || w_planes > 8)))
-    return (int)cudaErrorInvalidValue;
+  if (body == BODY_PLANES_W4)
+    return launch_planes<4>(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                            w_planes, w_plane_stride, stream);
+  if (body == BODY_PLANES_W8)
+    return launch_planes<8>(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                            w_planes, w_plane_stride, stream);
   return launch(body, 1, x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc,
-                M, N, K, w_planes, w_plane_stride, 0, 0, stream);
+                M, N, K, 0, 0, stream);
 }
 
 // K11: `groups` GEMMs of one (M, N, K) shape in one launch. Every operand is
@@ -431,5 +912,5 @@ extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
   if (body == BODY_PLANES_W4 || body == BODY_PLANES_W8)
     return (int)cudaErrorInvalidValue;
   return launch(body, groups, x0, x1, w0, w1, w_scale, a_scale, bias, out,
-                out_acc, M, N, K, 1, 0, x_group_words, w_group_words, stream);
+                out_acc, M, N, K, x_group_words, w_group_words, stream);
 }

@@ -1,8 +1,9 @@
 """Causal GQA flash attention for prefill — counterpart of
 `repro.kernels.flash_attn`.
 
-`flash_attention` launches the CUDA kernel (`csrc/flash_attn.cu`) for CUDA
-tensors; for CPU tensors it runs `flash_attention_plain`, the reference's
+`flash_attention` launches the CUDA kernel (`csrc/flash_attn.cu`: bf16 on
+the tensor cores, f32 on the CUDA cores) for CUDA tensors; for CPU tensors
+it runs `flash_attention_plain`, the reference's
 `_flash_kernel` algebra in torch: 256-row query and KV blocks, scores in
 f32 scaled after the dot, NEG_INF causal mask, online softmax (m, l, acc in
 f32), p rounded to v's dtype before the PV product, out / max(l, 1e-20).
@@ -93,6 +94,10 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
                          "float32 or bfloat16")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {dh} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in ts):
+        raise ValueError("flash_attention: bf16 rows must start 16-byte aligned "
+                         "(aligned storage, strides multiples of 8)")
     out = torch.empty((b, tq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))

@@ -10,10 +10,13 @@ draft runs.
 
 The plain version follows the reference's `_planes_step`: unpack plane i to
 {0,1} int8, take its int32 dot with the activations, add coeff_i * dot. The
-CUDA body (`csrc/gemm.cu`, BODY_PLANES_W4/W8, storage format F_PLANES)
-composes the live plane words of each K word into int8 codes in shared
-memory and runs the __dp4a loop of the int8 body; both are integer sums, so
-they agree bit for bit, and at P = b they equal the direct int4/int8 cells.
+CUDA bodies (`csrc/gemm.cu`, BODY_PLANES_W4/W8) compose the live plane words
+into int8 codes with an in-register bit transpose, then take the dot with
+__dp4a up to 8 rows (`planes_stream_kernel`, streaming the plane words) and
+on the int8 tensor cores above (`planes_mma_kernel`); all are integer sums,
+so they agree bit for bit, and at P = b they equal the direct int4/int8
+cells. The activation rows must be 16-byte aligned on the card, as every
+contiguous int8 (M, K) tensor with K % 32 == 0 is.
 """
 from __future__ import annotations
 

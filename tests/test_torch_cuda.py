@@ -9,8 +9,8 @@ Bars: the GEMM kernel's int32 accumulator and bf16 requant output are
 bit-equal to the plain version for every MAC body (ragged M and N, with and
 without bias), and the mxu bodies' accumulators equal the popcount bodies';
 the plane bodies (K10) are bit-equal to their plain version at every
-truncation depth P in {1, 2, bits}, and at P = bits to the direct int8 and
-int4 bodies on the composed codes;
+truncation depth P in 1..bits, in both regimes (up to 8 rows and above),
+and at P = bits to the direct int8 and int4 bodies on the composed codes;
 paged decode is within rtol=atol=2e-5 of the plain version for f32 queries
 (the bar of tests/test_paged_attn.py: the same algebra summed in another
 order) and 2e-2 for bf16 (the plain version rounds scores, probabilities
@@ -103,8 +103,17 @@ def test_mxu_kernel_equals_popcount_kernel(cuda, mxu, popcount, m, k, n):
     assert torch.equal(a, b)
 
 
+#: both K10 regimes (the streaming kernel up to 8 rows, the tensor-core
+#: kernel above) at decode, verify and prefill rows, on each side of the
+#: switch, with K a multiple of 128 (16-byte plane rows) or not (K = 160)
+_PLANE_SHAPES = ([(1, 128, 96), (5, 256, 100), (33, 3072, 200)]
+                 + [(m, k, 200) for m in (1, 4, 8, 9, 13, 16, 17, 40, 256)
+                    for k in (128, 3072, 8192)]
+                 + [(4, 160, 100), (40, 160, 100)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 128, 96), (5, 256, 100), (33, 3072, 200)])
+@pytest.mark.parametrize("m,k,n", _PLANE_SHAPES)
 @pytest.mark.parametrize("body,direct", [(pgemm.PLANES_W4_I8A, i4gemm.INT4_W_I8A),
                                          (pgemm.PLANES_W8_I8A, i8gemm.I8_DOT)],
                          ids=["w4", "w8"])
@@ -113,7 +122,7 @@ def test_plane_kernel_truncations_and_direct(cuda, body, direct, m, k, n):
     x, w, (ws, as_, b) = _operands(body, m, n, k, gen)
     bits = body.w_stack
     dev = lambda ts: tuple(t.to(cuda) for t in ts)
-    for p in (1, 2, bits):
+    for p in range(1, bits + 1):                 # every truncation depth
         wp = (w[0][:p],)
         acc = harness.gemm(body, dev(x), dev(wp), None, None, k=k, out="acc")
         assert torch.equal(acc.cpu(), harness.gemm(body, x, wp, None, None, k=k,
@@ -134,14 +143,21 @@ def test_plane_kernel_truncations_and_direct(cuda, body, direct, m, k, n):
         harness.gemm(body, dev(x), (strided,), None, None, k=k, out="acc")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("b,h,hk,t,dh,causal", [
+#: the serve path's shapes and MHA / MQA, then T (a multiple of the 64-row
+#: tile or not, up to a 2048-token prompt) x dh x GQA group g in {1, 3} x
+#: causal or not
+_FLASH_SHAPES = ([
     (1, 24, 8, 256, 128, True),      # the serve path's prefill (GQA g=3)
     (2, 4, 4, 128, 64, True),        # MHA
     (1, 4, 1, 512, 32, True),        # MQA, two 256-row plain blocks
     (2, 6, 2, 100, 64, False),       # ragged T, no mask
-])
+] + [(1, 2 * g, 2, t, dh, causal) for t in (64, 192, 200, 256, 2048)
+     for dh in (64, 128) for g in (1, 3) for causal in (True, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,hk,t,dh,causal", _FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, dtype, tol, b, h, hk, t, dh, causal):
     rng = np.random.default_rng(t + dh)
     # (B, T, H, dh) activations, passed as (B, H, T, dh) views like the model
