@@ -10,13 +10,15 @@ Phases:
                (one nvcc per source, in parallel) for sm_90a; prints each
                kernel's registers and spills, and fails unless the SASS
                (cuobjdump) of K6's bf16 kernel holds HMMA/HGMMA and that of
-               K10's large-M kernel IMMA/IGMMA instructions
+               the large-M kernels of K1, K9 and K10 IMMA/IGMMA instructions
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, at the serve path's full llama3.2-3b shapes: the packed
                GEMM under each of its seven MAC bodies at M = 4, 32 and 256
                (int32 accumulator and bf16 requant output bit-equal, bias
                on and off; the mxu bodies' accumulators equal the popcount
-               bodies'), the plane-composed bodies (K10, int4 and int8
+               bodies'; K9 at qkv, out, up and down, the shapes w4a8 runs
+               it at; K1's and K9's decode ticks also timed back to back),
+               the plane-composed bodies (K10, int4 and int8
                stacks) at P = 1, 2 and bits live planes and M = 4, 7, 9,
                13, 16, 32, 40 and 256 (both regimes; bit-equal, and at P =
                bits equal to the direct int8 / int4 bodies' accumulators on
@@ -155,6 +157,9 @@ ATTENTION_KERNELS = ("paged_flash_decode", "flash_attention")
 MXU_TWIN = {"bgemm_mxu": "bgemm_popcount", "tgemm_mxu": "tgemm_popcount"}
 #: layers of one decode tick that run each mixed body (het's assignment)
 TICK_LAYERS = {"tgemm_wt_i8a": ("out", "down"), "i4gemm_w4a8": ("up",)}
+#: shapes checked for a body beyond its tick's: w4a8 runs K9 on every body
+#: projection
+CHECK_LAYERS = {"i4gemm_w4a8": ("qkv", "out", "up", "down")}
 
 
 def log(msg: str) -> None:
@@ -204,9 +209,11 @@ def phase_device() -> str:
 
 # -- phase 2 -----------------------------------------------------------------
 
-#: library -> (kernel whose SASS must hold tensor-core instructions, opcodes)
-TENSOR_CORE_KERNELS = {"flash_attn": ("flash_mma_kernel", ("HMMA", "HGMMA")),
-                       "gemm": ("planes_mma_kernel", ("IMMA", "IGMMA"))}
+#: (library, kernel whose SASS must hold tensor-core instructions, opcodes)
+TENSOR_CORE_KERNELS = [("flash_attn", "flash_mma_kernel", ("HMMA", "HGMMA")),   # K6
+                       ("gemm", "i8_mma_kernel", ("IMMA", "IGMMA")),            # K1
+                       ("gemm", "s4_mma_kernel", ("IMMA", "IGMMA")),            # K9
+                       ("gemm", "planes_mma_kernel", ("IMMA", "IGMMA"))]        # K10
 
 
 def ptxas_report(name: str, text: str) -> None:
@@ -228,16 +235,19 @@ def ptxas_report(name: str, text: str) -> None:
 
 def sass_tensor_cores() -> None:
     """cuobjdump -sass (the toolkit's, beside nvcc) of the built libraries:
-    K6's bf16 kernel must hold HMMA (or HGMMA) and K10's large-M kernel IMMA
-    (or IGMMA) instructions."""
+    K6's bf16 kernel must hold HMMA (or HGMMA) and the large-M kernels of
+    K1, K9 and K10 IMMA (or IGMMA) instructions."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         raise RuntimeError(f"{tool} not found")
-    for lib, (kernel, ops) in TENSOR_CORE_KERNELS.items():
-        sass = subprocess.run([str(tool), "-sass", str(build.lib_path(lib))],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
+    sass_of = {}
+    for lib, kernel, ops in TENSOR_CORE_KERNELS:
+        if lib not in sass_of:
+            sass_of[lib] = subprocess.run(
+                [str(tool), "-sass", str(build.lib_path(lib))], capture_output=True,
+                text=True, timeout=300, check=True).stdout
+        sass = sass_of[lib]
         funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
                  if kernel in f.split("\n", 1)[0]]
         if not funcs:
@@ -322,16 +332,19 @@ def unpacked_i8(body, x_ops, w_ops, k):
 
 
 def check_gemm(body, cfg, flush, gen, accs) -> dict:
-    """Kernel vs plain at every serve GEMM shape, at M = SLOTS (decode) and
-    at both prefill buckets; returns the per-decode-tick record. `accs`
-    collects each shape's int32 accumulator, so that an mxu body can be
-    held against its popcount twin on the same operands (same seed)."""
-    from repro_torch.kernels import harness
+    """Kernel vs plain at every serve GEMM shape the body runs (its tick's,
+    TICK_LAYERS, and CHECK_LAYERS), at M = SLOTS (decode) and at both
+    prefill buckets; returns the per-decode-tick record over its tick's
+    layers. `accs` collects each shape's int32 accumulator, so that an mxu
+    body can be held against its popcount twin on the same operands (same
+    seed). K1's and K9's decode ticks are also timed back to back."""
+    from repro_torch.kernels import harness, i4gemm, i8gemm
     tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0, "lib": 0.0}
     layers = TICK_LAYERS.get(body.name)
+    checked = CHECK_LAYERS.get(body.name, layers)
     for m in (SLOTS, PREFILL_BUCKET, LONG_BUCKET):
         for si, (name, n, k, per_tick) in enumerate(gemm_shapes(cfg)):
-            if layers is not None and name not in layers:
+            if checked is not None and name not in checked:
                 continue
             gen.manual_seed(1000 * m + si)   # an mxu body meets its twin's operands
             x_ops, w_ops, ws, as_, bias = gemm_operands(body, m, n, k, gen)
@@ -377,13 +390,21 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
                 f"bit-equal ok  kernel {ms:.4f} ms  plain {pms:.3f} ms  "
                 f"bound {bound:.4f} ms ({'bytes' if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S else 'operations'})"
                 + (f"  torch._int_mm {lib:.4f} ms" if lib is not None else ""))
-            if m == SLOTS:
+            if m == SLOTS and (layers is None or name in layers):
                 tick["ms"] += per_tick * ms
                 tick["plain_ms"] += per_tick * pms
                 tick["bytes"] += per_tick * nbytes
                 tick["ops"] += per_tick * ops
     t_bytes = tick["bytes"] / HBM_BYTES_PER_S
     t_ops = tick["ops"] / INT8_OPS_PER_S
+    log(f"[kernels] {body.name} {SLOTS}-slot decode tick ({'+'.join(layers or ('all',))}"
+        f" layers), sum of launches timed one by one: {tick['ms']:.3f} ms (bound "
+        f"{max(t_bytes, t_ops) * 1e3:.4f})")
+    if body in (i8gemm.I8_DOT, i4gemm.INT4_W_I8A):
+        seq = tick_in_sequence(body, cfg, flush, gen)[None]
+        log(f"[kernels] {body.name} {SLOTS}-slot decode tick "
+            f"({'every layer and lm_head' if body is i8gemm.I8_DOT else 'w4a8: 26 body layers'}"
+            f"), its launches back to back over distinct per-layer weights: {seq:.3f} ms")
     return {"name": body.name, "max_abs_err": 0.0, "ms": tick["ms"],
             "plain_ms": tick["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -585,7 +606,7 @@ def check_planes(body, cfg, flush, gen) -> dict:
         f"by one: " + "; ".join(f"P={p} {tick['ms'][p]:.3f} ms (bound {bounds[p]:.4f})"
                                 for p in depths)
         + f"; P=1 / P={bits} = {tick['ms'][1] / tick['ms'][bits]:.3f}")
-    seq = tick_in_sequence(body, cfg, depths, flush, gen)
+    seq = tick_in_sequence(body, cfg, flush, gen, depths)
     log(f"[kernels] {body.name} {SLOTS}-slot decode tick, its launches back to back "
         f"over distinct per-layer weights: "
         + "; ".join(f"P={p} {t:.3f} ms" for p, t in seq.items())
@@ -597,36 +618,43 @@ def check_planes(body, cfg, flush, gen) -> dict:
             "library_ms": None}
 
 
-def tick_in_sequence(body, cfg, depths, flush, gen) -> dict:
-    """P -> device ms of one 4-slot decode tick's plane GEMMs launched back
-    to back, as a tick issues them: per layer qkv, out, up, down on that
-    layer's own random plane stack (so each launch finds its weights cold,
-    the whole model's 3.2 GB at 8 planes passing through L2), then lm_head;
-    the w4a8 tick's 26 body layers and no lm_head for the int4 body. One
-    span of CUDA events per tick, so the per-launch event cost of the sum
-    above is not in it."""
+def tick_in_sequence(body, cfg, flush, gen, depths=(None,)) -> dict:
+    """depth -> device ms of one 4-slot decode tick's GEMMs of `body`
+    launched back to back, as a tick issues them: per layer qkv, out, up,
+    down on that layer's own random weights (so each launch finds its
+    weights cold, the whole model's 3.2 GB at 8 bits passing through L2),
+    then lm_head; the w4a8 tick's 26 body layers and no lm_head for the
+    4-bit bodies (K9, the int4 plane stack). A plane body is timed at each
+    live-plane depth P, K1 and K9 once (depth None). One span of CUDA
+    events per tick, so the per-launch event cost of a sum of launches
+    timed one by one is not in it."""
+    from repro_torch.core import pack
     from repro_torch.kernels import harness
     bits = body.w_stack
+    four = bits == 4 or body.wk == pack.NIBBLES
     layers = []
     for name, n, k, per_tick in gemm_shapes(cfg):
-        if bits == 4:
+        if four:
             per_tick = 0 if name == "lm_head" else per_tick - 2
         x = torch.randint(-127, 128, (SLOTS, k), dtype=torch.int8, device="cuda",
                           generator=gen)
         ws = torch.rand(n, device="cuda", generator=gen) * 0.1 + 1e-3
         as_ = torch.rand(SLOTS, device="cuda", generator=gen) + 0.1
         for _ in range(per_tick):
-            stack = torch.randint(-2 ** 31, 2 ** 31 - 1, (bits, n, k // 32),
+            if bits:
+                w = torch.randint(-2 ** 31, 2 ** 31 - 1, (bits, n, k // 32),
                                   dtype=torch.int32, device="cuda", generator=gen)
-            layers.append((x, stack, ws, as_, k))
+            else:
+                w = gemm_operands(body, 1, n, k, gen)[1][0]
+            layers.append((x, w, ws, as_, k))
     # the tick's order: layer by layer, lm_head last
-    n_l = len(layers) // 4 if bits == 4 else (len(layers) - 1) // 4
+    n_l = len(layers) // 4 if four else (len(layers) - 1) // 4
     order = [layers[j * n_l + i] for i in range(n_l) for j in range(4)] + layers[4 * n_l:]
     out = {}
     for p in depths:
         def tick():
-            for x, stack, ws, as_, k in order:
-                harness.gemm(body, (x,), (stack[:p],), ws, as_, k=k)
+            for x, w, ws, as_, k in order:
+                harness.gemm(body, (x,), (w if p is None else w[:p],), ws, as_, k=k)
         out[p] = time_ms(tick, 3, flush, spin=TICK_SPIN_CYCLES)
     del layers, order
     torch.cuda.empty_cache()

@@ -112,13 +112,17 @@ class Kernel:
         self.launches = 0
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, stream: int | None = None) -> None:
+        """Launch on `stream` (a cudaStream_t handle), by default the
+        current stream."""
         if self._fn is None:
             fn = getattr(load(self.lib), self.symbol)
             fn.argtypes = self.argtypes + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        if stream is None:
+            stream = torch.cuda.current_stream().cuda_stream
+        err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with "
                                f"cudaError {err}")

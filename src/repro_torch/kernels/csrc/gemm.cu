@@ -37,79 +37,67 @@
 // MAC kinds. The popcount bodies work on packed words directly: XNOR sums
 // __popc(x ^ w) mismatches (dot = K - 2 * mismatches), gated XNOR keeps
 // active and disagree counts (dot = active - 2 * disagree). Every other
-// body is a __dp4a body: each side is staged as words of four consecutive
-// int8 values of k (little-endian, the byte order of an int8 activation
-// row read as a word), so one __dp4a does four MACs. The tile load builds
-// those words: int8 rows are copied; K-major int8 weights are transposed
-// four columns at a time; bits, trits and nibbles are unpacked to ±1,
-// {-1, 0, +1} and sign-extended s4 bytes. The P live plane words of a plane
-// stack are composed into the codes sum_i coeff_i * bit_i (each fits an
-// int8, truncated or not: a missing plane contributes 0), so the plane
-// kernels' dot is integer-identical to the reference's per-plane sum
-// sum_i coeff_i * (x . plane_i). The reference's MXU bodies dot the
-// unpacked values in f32 and cast; this port takes the integer dot, which
-// is the same number and equals the popcount bodies' dot bit for bit.
+// body is an int8 body: each side becomes words of four consecutive int8
+// values of k (little-endian, the byte order of an int8 activation row read
+// as a word), multiplied by __dp4a (four MACs) or by the int8 tensor cores.
+// int8 rows are copied; K-major int8 weights are byte-transposed four
+// columns at a time; bits, trits and nibbles are unpacked to ±1, {-1, 0,
+// +1} and sign-extended s4 bytes. The P live plane words of a plane stack
+// are composed into the codes sum_i coeff_i * bit_i (each fits an int8,
+// truncated or not: a missing plane contributes 0), so the plane kernels'
+// dot is integer-identical to the reference's per-plane sum sum_i coeff_i *
+// (x . plane_i). The reference's MXU bodies dot the unpacked values in f32
+// and cast; this port takes the integer dot, which is the same number and
+// equals the popcount bodies' dot bit for bit.
 //
-// Design of gemm_kernel (every body but the two plane bodies). The TPU
-// grid's sequential K axis becomes a loop inside the block: a block owns one
-// BM x BN output tile, walks K in KT-word stages through shared memory (KT
-// packed words = 1024 k for the popcount bodies, KT four-code words = 128 k
-// for the __dp4a bodies), and keeps its int32 accumulators in registers.
-// Each warp owns one output column per lane and rows warp, warp+4, ... of
-// the tile; rows past M are skipped warp-uniformly and columns past N are
-// masked, so ragged M and N need no padding (the Pallas path pads M to 8).
-//
-// Bound. At decode (M = 4..32 rows) every weight word is used by only M
-// rows, so the kernel is bound by the bytes of the packed weights (1, 2, 4
-// or 8 bits per weight), far below the integer-op roof. gemm_kernel
-// coalesces the weight loads and keeps the tile small (BN = 32) so that the
-// N/32 blocks spread over all SMs; it does not pipeline the loads (32-word
-// stages, two barriers each, one load in flight per thread) or use the int8
-// tensor cores: the seven bodies it still runs are later redesigns.
-//
-// The plane bodies (K10, BODY_PLANES_W4 / W8) run two kernels of their own,
-// chosen by M, both composing the live plane words into int8 codes with one
-// in-register bit transpose (`planes_to_codes`: 8 words of four codes from 8
-// plane words in ~72 integer ops at 8 planes, fewer at fewer live planes):
-// - M <= 8 (decode and draft rows: 4 slots): `planes_stream_kernel`. Bytes
-//   bound it at 8 planes (each plane word feeds at most 8 rows); at 1-2
-//   planes the __dp4a work (M per four codes) is as large, and a 5-8.5 us
-//   floor per launch (an empty kernel's, timed the same way) is over half a
-//   small layer's time. Persistent blocks stage the activations once (M x K
-//   bytes, in the transpose's k-interleaved order so the codes need no
-//   reordering, each 128-byte k-quad's 16-byte pieces rotated so the 8 lanes
-//   that split a column's K read distinct banks) and stream the plane words
-//   with 16-byte loads, the next item's (4 to 8 loads per lane) in flight
-//   while this one is composed and multiplied, with no shared-memory round
-//   trip for the weights and no barrier after the staging. The 8 lanes of a
-//   column add their int32 sums with shuffles (exact in any order). Time
-//   follows the live plane bytes where they dominate: a P = 1 lm_head reads
-//   1/8 of the words of a P = 8 one.
-// - M > 8 (verify rows, the prefill buckets): `planes_mma_kernel`, a 128 x 64
-//   tile on the int8 tensor cores (mma.sync m16n8k32 s8, 8 warps of 32 x 32),
-//   which measured faster than the streaming kernel from 13 rows on.
-//   Composing the codes bounds it (2*M*N*K MACs cost the tensor cores little
-//   against ~11 ops per 4 codes, once per 128 rows). A 3-stage cp.async ring
-//   stages the activation tile and the raw plane words 128 k at a time; each
-//   stage the 256 threads compose one (column, plane word) each, in k order
-//   (`compose_word`), into a padded int8 tile that ldmatrix reads, so every
-//   code is composed once per block.
-// Both give the int32 dot of the reference's per-plane sum bit for bit.
+// Which kernel runs each body:
+// - K1 (BODY_I8), K9 (BODY_INT4_W_I8A) and K10 (the plane bodies), called
+//   ungrouped, run two kernels each, chosen by M. Up to SMALL_M = 8 rows
+//   (decode and draft rows of 4 slots) a weight-streaming kernel:
+//   persistent blocks stage the activations once and stream the weights
+//   through registers with 16-byte loads, the next item's in flight while
+//   this one is multiplied, bound by the weight bytes (each weight byte
+//   feeds at most 8 rows). Above 8 rows (verify rows, the prefill buckets)
+//   one int8 tensor-core tile (mma.sync m16n8k32 s8, 128 x 64, a 3-stage
+//   cp.async ring) with each body's own weight stage into a padded int8
+//   code tile:
+//     K1   i8_stream_kernel (K split across blocks, int32 atomics)  i8_mma_kernel
+//     K9   s4_stream_kernel                                          s4_mma_kernel
+//     K10  planes_stream_kernel                                      planes_mma_kernel
+//   Each kernel's design is written above it.
+// - gemm_kernel runs the popcount, mxu and ternary x int8 bodies (K3, K4,
+//   K7, K8) and every grouped launch (K11), K1's and K9's bodies included.
+//   The TPU grid's sequential K axis becomes a loop inside the block: a
+//   block owns one BM x BN output tile, walks K in KT-word stages through
+//   shared memory (KT packed words = 1024 k for the popcount bodies, KT
+//   four-code words = 128 k for the __dp4a bodies), and keeps its int32
+//   accumulators in registers. Each warp owns one output column per lane
+//   and rows warp, warp+4, ... of the tile; rows past M are skipped
+//   warp-uniformly and columns past N are masked, so ragged M and N need no
+//   padding (the Pallas path pads M to 8). Bound: at decode (M = 4..32 rows)
+//   every weight word is used by only M rows, so the bytes of the packed
+//   weights (1, 2, 4 or 8 bits per weight) bound it, far below the
+//   integer-op roof; it coalesces the weight loads and keeps the tile small
+//   (BN = 32) so that the N/32 blocks spread over all SMs, but does not
+//   pipeline the loads (32-word stages, two barriers each, one load in
+//   flight per thread) or use the tensor cores: its bodies are later
+//   redesigns.
 //
 // Groups (K11). `repro_gemm_grouped` runs G independent GEMMs of one shape
-// in one launch, the grid's third dimension over the groups: every operand
-// carries a leading G axis (x (G, M, .), w (G, N, .) or (G, K, N), w_scale
-// and bias (G, N), a_scale (G, M), out (G, M, N)), and a block offsets each
-// pointer by its group's stride and runs the unchanged body and epilogue.
-// An ungrouped launch is the one-group case. The MoE expert projections are
-// G = E weight stacks at decode M = slots x capacity (16 for 4 slots): the
-// same weight-byte bound, summed over the experts, with E times the blocks
-// of one expert's GEMM in flight.
+// in one launch of gemm_kernel, the grid's third dimension over the groups:
+// every operand carries a leading G axis (x (G, M, .), w (G, N, .) or (G,
+// K, N), w_scale and bias (G, N), a_scale (G, M), out (G, M, N)), and a
+// block offsets each pointer by its group's stride and runs the unchanged
+// body and epilogue. The MoE expert projections are G = E weight stacks at
+// decode M = slots x capacity (16 for 4 slots): the same weight-byte bound,
+// summed over the experts, with E times the blocks of one expert's GEMM in
+// flight.
 //
 // Exactness. The epilogue keeps the reference's order exactly and uses
 // __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA, and rounds
 // with __float2bfloat16_rn, so the bf16 output is bit-equal to
 // `harness.requant` on the same int32 dot and scales.
+
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -361,8 +349,9 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// K10: the plane bodies
+// Shared by the K1, K9 and K10 kernels below
 // ---------------------------------------------------------------------------
 
 // A 4 x 4 byte transpose: byte i of o[L] is byte L of in[i].
@@ -377,6 +366,78 @@ __device__ __forceinline__ void transpose4x4(uint32_t i0, uint32_t i1, uint32_t 
   o[2] = __byte_perm(a1, a3, 0x5410);
   o[3] = __byte_perm(a1, a3, 0x7632);
 }
+
+// Eight s4 codes (one F_S4 word, nibble j = code j) -> two words of four
+// sign-extended int8 codes in k order: lo holds codes 0..3, hi codes 4..7.
+// Whole-word masks pick the even and odd nibbles, two byte permutes put
+// them in order, and the sign bit (bit 3 of each byte) times 0x1E sets bits
+// 4..7 of each negative byte (0x08 * 0x1E = 0xF0: no carry between bytes).
+__device__ __forceinline__ void s4_to_codes(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t e = v & 0x0F0F0F0Fu, o = (v >> 4) & 0x0F0F0F0Fu;
+  lo = __byte_perm(e, o, 0x5140);
+  hi = __byte_perm(e, o, 0x7362);
+  lo |= (lo & 0x08080808u) * 0x1Eu;
+  hi |= (hi & 0x08080808u) * 0x1Eu;
+}
+
+// rows up to which the streaming kernels run: measured on the card (K10),
+// the tensor-core kernel is faster from 13 rows on at every llama3.2-3b shape
+constexpr int SMALL_M = 8;
+
+constexpr int S_THREADS = 128;
+constexpr int S_KL = 8;               // K10/K9: lanes of a column, splitting K
+constexpr int S_COLS = S_THREADS / S_KL;   // K10/K9: columns per tile, 4 per warp
+constexpr int S_XMAX = 64 * 1024;     // staged activations: M x K bytes at most
+
+// Four words (one 16-byte piece) of a row of `kw` words; zero when !ok.
+// `vec`: the rows are 16-byte aligned.
+__device__ __forceinline__ uint4 load_quad(const uint32_t* row, int q, int kw,
+                                           bool ok, int vec) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (ok) {
+    if (vec) {
+      v = __ldg(reinterpret_cast<const uint4*>(row) + q);
+    } else {
+      const int w = 4 * q;
+      v.x = __ldg(row + w);
+      if (w + 1 < kw) v.y = __ldg(row + w + 1);
+      if (w + 2 < kw) v.z = __ldg(row + w + 2);
+      if (w + 3 < kw) v.w = __ldg(row + w + 3);
+    }
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lane_of(const uint4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The streaming kernels' persistent grid: as many blocks as fit on the card
+// at once (for this kernel at `smem` dynamic bytes), none more than `work`.
+// Worked out at first use per (kernel, smem / 128), not per launch: a decode
+// tick launches these ~100 times, and each runtime query costs host time
+// that the tick waits for. One card per process (the serve path's).
+template <typename F>
+int resident_blocks(F* kernel, int smem, std::atomic<int>* fit, int* blocks) {
+  int b = fit[smem / 128].load(std::memory_order_relaxed);
+  if (b == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S_THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    b = max(1, per_sm) * sms;
+    fit[smem / 128].store(b, std::memory_order_relaxed);
+  }
+  *blocks = b;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// K10: the plane bodies
+// ---------------------------------------------------------------------------
 
 // One 32-k word of each live plane (pw[i]: plane i, MSB-first; bit k of the
 // word belongs to the k-th weight) -> the 32 int8 codes sum_i coeff_i *
@@ -453,49 +514,7 @@ __device__ __forceinline__ void compose_word(const uint32_t* pw, uint32_t* out) 
   interleave32<true>(w, out);
 }
 
-// d += a (16 x 32 s8, row) . b (32 x 8 s8, col), int32 accumulators
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows up to which planes_stream_kernel runs: measured on the card, the
-// tensor-core kernel is faster from 13 rows on at every llama3.2-3b shape
-constexpr int SMALL_M = 8;
-
 // -- small M: stream the plane words ----------------------------------------
-
-constexpr int S_THREADS = 128;
-constexpr int S_KL = 8;               // lanes of a column, splitting K
-constexpr int S_COLS = S_THREADS / S_KL;   // columns per tile, 4 per warp
-constexpr int S_XMAX = 64 * 1024;     // staged activations: M x K bytes at most
-
-// Four plane words (one 16-byte k-quad, 128 k) of one plane row; zero when
-// !ok. `vec`: the stack's rows are 16-byte aligned (K % 128 == 0).
-__device__ __forceinline__ uint4 load_quad(const uint32_t* row, int q, int kw,
-                                           bool ok, int vec) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (ok) {
-    if (vec) {
-      v = __ldg(reinterpret_cast<const uint4*>(row) + q);
-    } else {
-      const int w = 4 * q;
-      v.x = __ldg(row + w);
-      if (w + 1 < kw) v.y = __ldg(row + w + 1);
-      if (w + 2 < kw) v.z = __ldg(row + w + 2);
-      if (w + 3 < kw) v.w = __ldg(row + w + 3);
-    }
-  }
-  return v;
-}
-
-__device__ __forceinline__ uint32_t lane_of(const uint4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
 
 // M <= MS rows (MS = 4 or 8), NP live planes of a BITS-plane stack.
 // Persistent blocks walk 16-column tiles blockIdx.x, + gridDim.x, ...; lane
@@ -623,69 +642,526 @@ planes_stream_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__
   }
 }
 
-// -- large M: the int8 tensor cores -----------------------------------------
+// ---------------------------------------------------------------------------
+// K9: s4 nibble weights, small M
+// ---------------------------------------------------------------------------
 
-constexpr int T_THREADS = 256;     // 8 warps: 4 along M x 2 along N, 32 x 32 each
-constexpr int T_BM = 128, T_BN = 64;
-constexpr int T_KS = 128;          // k per stage: 4 plane words
-constexpr int T_STAGES = 3;
-constexpr int T_LD = T_KS + 16;    // padded row, bytes: ldmatrix's 8 rows in distinct banks
+// M <= MS rows of int8 activations x (N, K/8) s4 words: planes_stream_kernel's
+// walk with one 4-bit "plane". Lane 4 kl + c takes the 16-byte pieces (32 k)
+// kl, kl + 8, ... of column c, four per item (64 bytes in flight a lane).
+// Each word of eight nibbles is unpacked with two whole-word masks and no
+// sign extension: the lanes multiply u = nibble ^ 8 = code + 8 (0..15), and
+// the epilogue subtracts 8 * sum_k x[m, k], which the staging adds up once
+// per block; the integer sum is exact in any order, so the dot is the
+// reference's. The even and odd nibbles (v & 0x0F0F0F0F, (v >> 4) & ...)
+// are matched by activations staged as words of the even and the odd k of
+// each 8, so the codes need no byte permutes. 16-byte pieces of 32 k per
+// row (8 words: even, odd, even, odd, ...); the 8 k-lanes of a column read
+// 8 consecutive pieces, so a quarter-warp's two addresses hit distinct banks.
+template <int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+s4_stream_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ w,
+                 const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                 const float* __restrict__ bias, void* __restrict__ out, int out_acc,
+                 int M, int N, int K, int vec) {
+  constexpr int U = 4;                          // pieces per item
+  extern __shared__ uint4 xs[];                 // [M][np][2]
+  __shared__ int xsum[MS];
 
-template <int BITS>
-constexpr int tc_smem_bytes() {
-  return T_STAGES * (T_BM * T_LD + BITS * T_BN * 16) + T_BN * T_LD;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kl = lane / (32 / S_KL), col = warp * (32 / S_KL) + lane % (32 / S_KL);
+  const int kw = K / 8, np = (kw + 3) / 4;      // words, 32-k pieces per row
+  const int nb = ((np + S_KL - 1) / S_KL + U - 1) / U;   // items per tile
+  const int tiles = (N + S_COLS - 1) / S_COLS;
+  const int my_tiles = tiles > (int)blockIdx.x
+                           ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int items = my_tiles * nb;
+
+  auto column = [&](int it) {
+    return ((int)blockIdx.x + (it / nb) * (int)gridDim.x) * S_COLS + col;
+  };
+  auto load_item = [&](int it, uint4 (&buf)[U]) {
+    const int n = column(it), p0 = kl + S_KL * U * (it % nb);
+    const uint32_t* wn = w + (size_t)(n < N ? n : 0) * kw;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + S_KL * u;
+      buf[u] = load_quad(wn, p, kw, n < N && p < np, vec);
+    }
+  };
+  int acc[MS];
+#pragma unroll
+  for (int m = 0; m < MS; ++m) acc[m] = 0;
+  auto run_item = [&](int it, const uint4 (&buf)[U]) {
+    const int p0 = kl + S_KL * U * (it % nb);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + S_KL * u;
+      if (p >= np) break;
+      uint32_t ev[4], od[4];                    // u of the even / odd k of word e
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t t = lane_of(buf[u], e) ^ 0x88888888u;
+        ev[e] = t & 0x0F0F0F0Fu;
+        od[e] = (t >> 4) & 0x0F0F0F0Fu;
+      }
+      const uint4* xp = xs + 2 * p;
+#pragma unroll
+      for (int m = 0; m < MS; ++m) {
+        if (m < M) {                            // warp-uniform
+          const uint4 xa = xp[2 * m * np], xb = xp[2 * m * np + 1];
+          int a = acc[m];
+          a = __dp4a(static_cast<int>(xa.x), static_cast<int>(ev[0]), a);
+          a = __dp4a(static_cast<int>(xa.y), static_cast<int>(od[0]), a);
+          a = __dp4a(static_cast<int>(xa.z), static_cast<int>(ev[1]), a);
+          a = __dp4a(static_cast<int>(xa.w), static_cast<int>(od[1]), a);
+          a = __dp4a(static_cast<int>(xb.x), static_cast<int>(ev[2]), a);
+          a = __dp4a(static_cast<int>(xb.y), static_cast<int>(od[2]), a);
+          a = __dp4a(static_cast<int>(xb.z), static_cast<int>(ev[3]), a);
+          a = __dp4a(static_cast<int>(xb.w), static_cast<int>(od[3]), a);
+          acc[m] = a;
+        }
+      }
+    }
+    if (it % nb != nb - 1) return;
+#pragma unroll
+    for (int m = 0; m < MS; ++m) {
+      int a = acc[m];
+#pragma unroll
+      for (int o = 32 / S_KL; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      acc[m] = 0;
+      const int n = column(it);
+      if (n < N && m < M && m == kl)
+        store_out(out, out_acc, (size_t)m * N + n, a - 8 * xsum[m], w_scale, a_scale,
+                  bias, m, n);
+    }
+  };
+
+  uint4 ba[U], bb[U];
+  if (items > 0) load_item(0, ba);
+  if (tid < MS) xsum[tid] = 0;
+  __syncthreads();
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(x);
+  for (int i = tid; i < M * np; i += S_THREADS) {
+    const int m = i / np, p = i % np;
+    uint32_t v[8], t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)               // K % 8 == 0: whole words
+      v[j] = 32 * p + 4 * j < K ? __ldg(xw + ((size_t)m * K + 32 * p + 4 * j) / 4) : 0u;
+    int s = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      t[2 * e] = __byte_perm(v[2 * e], v[2 * e + 1], 0x6420);       // even k
+      t[2 * e + 1] = __byte_perm(v[2 * e], v[2 * e + 1], 0x7531);   // odd k
+      s = __dp4a(static_cast<int>(v[2 * e]), 0x01010101, s);
+      s = __dp4a(static_cast<int>(v[2 * e + 1]), 0x01010101, s);
+    }
+    xs[2 * i] = make_uint4(t[0], t[1], t[2], t[3]);
+    xs[2 * i + 1] = make_uint4(t[4], t[5], t[6], t[7]);
+    atomicAdd(&xsum[m], s);
+  }
+  __syncthreads();
+  for (int it = 0; it < items; it += 2) {
+    if (it + 1 < items) load_item(it + 1, bb);
+    run_item(it, ba);
+    if (it + 1 >= items) break;
+    if (it + 2 < items) load_item(it + 2, ba);
+    run_item(it + 1, bb);
+  }
 }
 
-template <int BITS>
-__global__ void __launch_bounds__(T_THREADS, 2)
-planes_mma_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ w,
-                  const float* __restrict__ w_scale, const float* __restrict__ a_scale,
-                  const float* __restrict__ bias, void* __restrict__ out, int out_acc,
-                  int M, int N, int K, int np, long long pstride, int vec) {
+// ---------------------------------------------------------------------------
+// K1: K-major int8 weights, small M
+// ---------------------------------------------------------------------------
+
+// The K-major (K, N) layout puts 16 columns of one k in a 16-byte load, so
+// a lane owns COLS columns and loads them at 4 consecutive k (one k-quad),
+// and a 4 x 4 byte transpose per word turns the 4 loads into one __dp4a
+// word per column. A block of 128 threads owns a 32-column tile: CL column
+// lanes x KL k-lanes that stride over the tile's k-quads. At llama3.2-3b's
+// N = 3072 (96 tiles) that fills too few SMs, so K is also split across
+// blocks: a unit is (tile, split), `splits` chosen by the launcher so that
+// the units fill the card in as few rounds as it can, and persistent blocks
+// walk the units with the next item's loads in flight, as in the kernels
+// above. At a unit's end the KW k-lanes of a warp reduce-scatter their
+// accumulators (each halving sends half of the live values to the partner
+// lane and keeps the other half: log2 KW shuffle steps leave VR outputs a
+// lane), the four warps add theirs in shared memory, and then either the
+// block stores the tile (one split) or adds it with atomicAdd into an int32
+// workspace; the block that brings the tile's counter to `splits` reads the
+// sums back with atomicExch(0), stores them and zeroes the counter, so the
+// workspace is zero again for the next launch. Integer sums are exact in
+// any order, so every split gives the reference's dot.
+template <int MS> struct I8S {
+  static constexpr int CW = MS <= 4 ? 4 : 2;  // words a lane loads per k: 16 | 8 columns
+  static constexpr int COLS = 4 * CW;         // columns per lane
+  static constexpr int TN = 32;               // columns per tile
+  static constexpr int CL = TN / COLS;        // column lanes: 2 | 4
+  static constexpr int KW = 32 / CL;          // k-lanes per warp: 16 | 8
+  static constexpr int KL = S_THREADS / CL;   // k-lanes per block: 64 | 32
+  static constexpr int V = MS * COLS;         // accumulators per lane: 64
+  static constexpr int VR = V / KW;           // outputs per lane after the reduce: 4 | 8
+  static_assert((KW & (KW - 1)) == 0 && COLS % VR == 0 && VR % 4 == 0,
+                "reduce-scatter layout");
+};
+
+// The warp's reduce-scatter over lane bits O, O/2, .., CL: at each step the
+// lane with the bit set keeps the upper H values and sends the lower H, its
+// partner the reverse. Adds the kept block's flat offset to f0.
+template <int O, int H, int CL>
+__device__ __forceinline__ void reduce_scatter(int* acc, int lane, int& f0) {
+  if constexpr (O >= CL) {
+    const bool up = lane & O;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const int send = up ? acc[i] : acc[i + H];
+      const int keep = up ? acc[i + H] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    f0 += up ? H : 0;
+    reduce_scatter<O / 2, H / 2, CL>(acc, lane, f0);
+  }
+}
+
+// CW words (4 columns each) of one weight row at p; words at or past N zero.
+template <int CW>
+__device__ __forceinline__ void load_cols(const uint8_t* p, bool ok, int left, int vec,
+                                          uint32_t* v) {
+#pragma unroll
+  for (int e = 0; e < CW; ++e) v[e] = 0u;
+  if (!ok) return;
+  if (vec) {
+    if constexpr (CW == 4) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = t.x; v[1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < CW; ++e)
+      if (4 * e < left) v[e] = __ldg(reinterpret_cast<const uint32_t*>(p) + e);
+  }
+}
+
+template <int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+i8_stream_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                 const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                 const float* __restrict__ bias, void* __restrict__ out, int out_acc,
+                 int M, int N, int K, int splits, int span, int* __restrict__ ws,
+                 int xvec, int vec) {
+  using P = I8S<MS>;
+  extern __shared__ __align__(16) uint32_t xw[];   // [M][K/4] words, then red
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cl = lane % P::CL, kl = warp * P::KW + lane / P::CL;
+  const int nq = K / 4, tiles = (N + P::TN - 1) / P::TN, units = tiles * splits;
+  const int my_units = units > (int)blockIdx.x
+                           ? (units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int items = my_units * span;
+  int* red = reinterpret_cast<int*>(xw + ((M * nq + 3) & ~3));   // [4][MS][TN]
+
+  // item it: unit blockIdx.x + (it / span) * gridDim.x = (tile, split);
+  // k-lane kl takes quad split * span * KL + (it % span) * KL + kl
+  auto unit = [&](int it) { return (int)blockIdx.x + (it / span) * (int)gridDim.x; };
+  auto quad = [&](int it) {
+    return (unit(it) / tiles * span + it % span) * P::KL + kl;
+  };
+  auto load_item = [&](int it, uint32_t (&buf)[4][P::CW]) {
+    const int q = quad(it), n = unit(it) % tiles * P::TN + cl * P::COLS;
+    const bool ok = q < nq && n < N;
+    const uint8_t* p = w + (ok ? (size_t)4 * q * N + n : 0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) load_cols<P::CW>(p + r * (size_t)N, ok, N - n, vec, buf[r]);
+  };
+  int acc[P::V];
+#pragma unroll
+  for (int i = 0; i < P::V; ++i) acc[i] = 0;
+
+  auto finish = [&](int it) {
+    int f0 = 0;
+    reduce_scatter<16, P::V / 2, P::CL>(acc, lane, f0);
+    {
+      int* r = red + (warp * MS + f0 / P::COLS) * P::TN + cl * P::COLS + f0 % P::COLS;
+#pragma unroll
+      for (int i = 0; i < P::VR; i += 4)
+        *reinterpret_cast<int4*>(r + i) = make_int4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+    }
+#pragma unroll
+    for (int i = 0; i < P::V; ++i) acc[i] = 0;
+    __syncthreads();
+    const int t = unit(it) % tiles;
+    int* part = ws + t * MS * P::TN;
+    for (int o = tid; o < MS * P::TN; o += S_THREADS) {
+      const int m = o / P::TN, n = t * P::TN + o % P::TN;
+      int s = 0;
+#pragma unroll
+      for (int v = 0; v < S_THREADS / 32; ++v) s += red[v * MS * P::TN + o];
+      if (m < M && n < N) {
+        if (splits == 1)
+          store_out(out, out_acc, (size_t)m * N + n, s, w_scale, a_scale, bias, m, n);
+        else
+          atomicAdd(part + o, s);
+      }
+    }
+    if (splits > 1) {
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) last = atomicAdd(ws + tiles * MS * P::TN + t, 1) == splits - 1;
+      __syncthreads();
+      if (last) {
+        __threadfence();
+        for (int o = tid; o < MS * P::TN; o += S_THREADS) {
+          const int m = o / P::TN, n = t * P::TN + o % P::TN;
+          if (m < M && n < N)
+            store_out(out, out_acc, (size_t)m * N + n, atomicExch(part + o, 0), w_scale,
+                      a_scale, bias, m, n);
+        }
+        if (tid == 0) atomicExch(ws + tiles * MS * P::TN + t, 0);
+      }
+    }
+    __syncthreads();                    // red and `last` serve the next unit
+  };
+  auto run_item = [&](int it, const uint32_t (&buf)[4][P::CW]) {
+    const int q = quad(it);
+    if (q < nq) {
+      uint32_t xv[MS];
+#pragma unroll
+      for (int m = 0; m < MS; ++m) xv[m] = m < M ? xw[m * nq + q] : 0u;
+#pragma unroll
+      for (int e = 0; e < P::CW; ++e) {
+        uint32_t c[4];                  // columns 4e .. 4e+3, k = 4q .. 4q+3
+        transpose4x4(buf[0][e], buf[1][e], buf[2][e], buf[3][e], c);
+#pragma unroll
+        for (int m = 0; m < MS; ++m) {
+          if (m < M) {                  // warp-uniform
+#pragma unroll
+            for (int l = 0; l < 4; ++l)
+              acc[m * P::COLS + 4 * e + l] = __dp4a(static_cast<int>(xv[m]),
+                                                    static_cast<int>(c[l]),
+                                                    acc[m * P::COLS + 4 * e + l]);
+          }
+        }
+      }
+    }
+    if (it % span == span - 1) finish(it);   // block-uniform
+  };
+
+  uint32_t ba[4][P::CW], bb[4][P::CW];
+  if (items > 0) load_item(0, ba);
+  if (xvec) {
+    const uint4* src = reinterpret_cast<const uint4*>(x);
+    for (int i = tid; i < M * nq / 4; i += S_THREADS)
+      reinterpret_cast<uint4*>(xw)[i] = __ldg(src + i);
+  } else {
+    for (int i = tid; i < M * nq; i += S_THREADS)
+      xw[i] = __ldg(reinterpret_cast<const uint32_t*>(x) + i);
+  }
+  __syncthreads();
+  for (int it = 0; it < items; it += 2) {
+    if (it + 1 < items) load_item(it + 1, bb);
+    run_item(it, ba);
+    if (it + 1 >= items) break;
+    if (it + 2 < items) load_item(it + 2, ba);
+    run_item(it + 1, bb);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Large M: one int8 tensor-core tile for K1, K9 and K10
+// ---------------------------------------------------------------------------
+
+// A 128 x 64 output tile, 8 warps of 32 x 32 (4 along M x 2 along N) on
+// mma.sync m16n8k32 s8 with ldmatrix fragments. A 3-stage cp.async ring
+// brings each 128-k stage of the activation tile and of the raw weights;
+// each stage the block turns its raw weights into a padded int8 tile Bc (N
+// rows of K-contiguous codes, the layout ldmatrix and the s8 mma need),
+// once per block for all 128 rows, by the body's own weight stage:
+//   WK_I8      K-major (K, N) int8: cp.async in rows of 64 columns (every
+//              4 rows padded by 16 bytes, so the transpose's reads spread
+//              over the banks), then per thread a 4 x 8 byte block is
+//              transposed (2 x transpose4x4) into 8 column words of 4 k; a
+//              warp's 32 lanes take 32 k-quads of one 8-column block, so
+//              their stores into Bc hit 32 distinct banks
+//   WK_S4      (N, K/8) s4 words: 4 words (32 k) per thread -> 8 code words
+//              (s4_to_codes)
+//   WK_PLANES4 / WK_PLANES8  a BITS-plane stack, np live planes: one plane
+//              word of each plane per thread -> 32 composed codes
+//              (compose_word)
+// Composing K10's codes bounds its tile (2*M*N*K MACs cost the tensor cores
+// little against ~11 ops per 4 codes, once per 128 rows); the K1 transpose
+// (~6 ops per 4 codes) and the K9 unpack (~2) cost less.
+constexpr int T_THREADS = 256;     // 8 warps: 4 along M x 2 along N, 32 x 32 each
+constexpr int T_BM = 128, T_BN = 64;
+constexpr int T_KS = 128;          // k per stage
+constexpr int T_STAGES = 3;
+constexpr int T_LD = T_KS + 16;    // padded row, bytes: ldmatrix's 8 rows in distinct banks
+constexpr int T_KQ = 4 * T_BN + 16;   // WK_I8: bytes of 4 staged K-major rows + pad
+
+enum { WK_I8, WK_S4, WK_PLANES4, WK_PLANES8 };
+
+template <int WK> struct WTile {
+  static constexpr int BITS = WK == WK_PLANES4 ? 4 : WK == WK_PLANES8 ? 8 : 0;
+  // raw weight bytes staged per stage
+  static constexpr int RAW = WK == WK_I8 ? (T_KS / 4) * T_KQ
+                             : WK == WK_S4 ? T_BN * (T_KS / 2)
+                             : BITS * T_BN * 16;
+  static constexpr int SMEM = T_STAGES * (T_BM * T_LD + RAW) + T_BN * T_LD;
+};
+
+struct TcArgs {
+  const uint8_t* x;
+  const void* w;
+  const float* w_scale;
+  const float* a_scale;
+  const float* bias;
+  void* out;
+  int out_acc, M, N, K;
+  int np;                // WK_PLANES*: live planes
+  long long pstride;     // WK_PLANES*: words from one plane to the next
+  int xvec;              // activation rows 16-byte aligned (else 4-byte copies)
+  int wvec;              // weight rows 16-byte aligned (else 4-byte copies)
+};
+
+// cp.async the raw weights of the stage at k0 into `raw`
+template <int WK>
+__device__ __forceinline__ void load_weights(const TcArgs& a, uint8_t* raw, int k0,
+                                             int n0, int tid) {
+  if constexpr (WK == WK_I8) {
+    const auto* w = static_cast<const uint8_t*>(a.w);
+    if (a.wvec) {              // 16 columns a copy
+      for (int i = tid; i < T_KS * (T_BN / 16); i += T_THREADS) {
+        const int r = i / (T_BN / 16), j = i % (T_BN / 16), k = k0 + r, n = n0 + 16 * j;
+        const bool ok = k < a.K && n < a.N;
+        cp_async16(raw + (r >> 2) * T_KQ + (r & 3) * T_BN + 16 * j,
+                   ok ? w + (size_t)k * a.N + n : w, ok ? 16 : 0);
+      }
+    } else {                   // 4 columns a copy (N % 4 == 0)
+      for (int i = tid; i < T_KS * (T_BN / 4); i += T_THREADS) {
+        const int r = i / (T_BN / 4), j = i % (T_BN / 4), k = k0 + r, n = n0 + 4 * j;
+        const bool ok = k < a.K && n < a.N;
+        cp_async4(raw + (r >> 2) * T_KQ + (r & 3) * T_BN + 4 * j,
+                  ok ? w + (size_t)k * a.N + n : w, ok ? 4 : 0);
+      }
+    }
+  } else {
+    // row-major words: s4 (N, K/8) or each plane (N, K/32); W words per
+    // column per stage
+    constexpr int KPW = WK == WK_S4 ? 8 : 32;
+    constexpr int W = T_KS / KPW;                 // 16 | 4
+    const auto* w = static_cast<const uint32_t*>(a.w);
+    const int kw = a.K / KPW, kw0 = k0 / KPW;
+    const int planes = WK == WK_S4 ? 1 : a.np;
+    uint32_t* dst0 = reinterpret_cast<uint32_t*>(raw);
+    if (a.wvec) {
+      for (int i = tid; i < planes * T_BN * (W / 4); i += T_THREADS) {
+        const int p = i / (T_BN * (W / 4)), c = i / (W / 4) % T_BN, j = i % (W / 4);
+        const int n = n0 + c, kq = kw0 + 4 * j;
+        const bool ok = n < a.N && kq < kw;
+        cp_async16(dst0 + (p * T_BN + c) * W + 4 * j,
+                   ok ? w + p * a.pstride + (size_t)n * kw + kq : w, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < planes * T_BN * W; i += T_THREADS) {
+        const int p = i / (T_BN * W), c = i / W % T_BN, j = i % W;
+        const int n = n0 + c, kq = kw0 + j;
+        const bool ok = n < a.N && kq < kw;
+        cp_async4(dst0 + (p * T_BN + c) * W + j,
+                  ok ? w + p * a.pstride + (size_t)n * kw + kq : w, ok ? 4 : 0);
+      }
+    }
+  }
+}
+
+// raw weights of one stage -> Bc [T_BN][T_LD] int8 codes, k-contiguous rows
+template <int WK>
+__device__ __forceinline__ void weights_to_codes(const TcArgs& a, const uint8_t* raw,
+                                                 uint8_t* Bc, int tid) {
+  if constexpr (WK == WK_I8) {
+    // warp = 8-column block, lane = k-quad: 4 rows of 8 bytes, transposed
+    const int c8 = tid >> 5, kq = tid & 31;
+    uint2 r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = *reinterpret_cast<const uint2*>(raw + kq * T_KQ + i * T_BN + 8 * c8);
+    uint32_t lo[4], hi[4];
+    transpose4x4(r[0].x, r[1].x, r[2].x, r[3].x, lo);
+    transpose4x4(r[0].y, r[1].y, r[2].y, r[3].y, hi);
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      *reinterpret_cast<uint32_t*>(Bc + (8 * c8 + l) * T_LD + 4 * kq) = lo[l];
+      *reinterpret_cast<uint32_t*>(Bc + (8 * c8 + 4 + l) * T_LD + 4 * kq) = hi[l];
+    }
+  } else if constexpr (WK == WK_S4) {
+    // thread = (column c, 32-k piece e): 4 s4 words -> 8 code words
+    const int c = tid >> 2, e = tid & 3;
+    const uint4 v = reinterpret_cast<const uint4*>(raw)[c * 4 + e];
+    uint32_t cw[8];
+    s4_to_codes(v.x, cw[0], cw[1]);
+    s4_to_codes(v.y, cw[2], cw[3]);
+    s4_to_codes(v.z, cw[4], cw[5]);
+    s4_to_codes(v.w, cw[6], cw[7]);
+    uint4* d = reinterpret_cast<uint4*>(Bc + c * T_LD + 32 * e);
+    d[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
+    d[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
+  } else {
+    // thread = (column c, plane word e) -> 32 codes of column c
+    constexpr int BITS = WTile<WK>::BITS;
+    const uint32_t* Ws = reinterpret_cast<const uint32_t*>(raw);
+    const int c = tid >> 2, e = tid & 3;
+    uint32_t pw[BITS], cw[8];
+#pragma unroll
+    for (int p = 0; p < BITS; ++p) pw[p] = p < a.np ? Ws[(p * T_BN + c) * 4 + e] : 0u;
+    compose_word<BITS, BITS>(pw, cw);
+    uint4* d = reinterpret_cast<uint4*>(Bc + c * T_LD + 32 * e);
+    d[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
+    d[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
+  }
+}
+
+template <int WK>
+__device__ __forceinline__ void mma_tile(const TcArgs& a) {
+  using T = WTile<WK>;
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* As = smem;                                          // [S][BM][LD]
-  // [S][BITS][BN][4] plane words
-  uint32_t* Ws = reinterpret_cast<uint32_t*>(smem + T_STAGES * T_BM * T_LD);
-  uint8_t* Bc = smem + T_STAGES * (T_BM * T_LD + BITS * T_BN * 16);           // [BN][LD]
+  uint8_t* As = smem;                                    // [S][BM][LD]
+  uint8_t* Raw = smem + T_STAGES * T_BM * T_LD;          // [S][RAW]
+  uint8_t* Bc = Raw + T_STAGES * T::RAW;                 // [BN][LD]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int m0 = blockIdx.y * T_BM, n0 = blockIdx.x * T_BN;
-  const int kw = K / 32, nst = (K + T_KS - 1) / T_KS;
+  const int nst = (a.K + T_KS - 1) / T_KS;
 
   auto load_stage = [&](int st, int buf) {
     const int k0 = st * T_KS;
     for (int i = tid; i < T_BM * (T_KS / 16); i += T_THREADS) {
       const int r = i / (T_KS / 16), c = i % (T_KS / 16), m = m0 + r, k = k0 + 16 * c;
-      const bool ok = m < M && k < K;
-      cp_async16(As + (buf * T_BM + r) * T_LD + 16 * c,
-                 ok ? x + (size_t)m * K + k : x, ok ? 16 : 0);
-    }
-    const int kw0 = k0 / 32;
-    for (int i = tid; i < np * T_BN; i += T_THREADS) {
-      const int p = i / T_BN, c = i % T_BN, n = n0 + c;
-      uint32_t* dst = Ws + ((buf * BITS + p) * T_BN + c) * 4;
-      const uint32_t* src = w + p * pstride + (size_t)n * kw + kw0;
-      if (vec) {
-        const bool ok = n < N && kw0 < kw;
-        cp_async16(dst, ok ? src : w, ok ? 16 : 0);
-      } else {
+      uint8_t* dst = As + (buf * T_BM + r) * T_LD + 16 * c;
+      const uint8_t* src = a.x + (size_t)m * a.K + k;
+      if (a.xvec) {
+        const bool ok = m < a.M && k < a.K;
+        cp_async16(dst, ok ? src : a.x, ok ? 16 : 0);
+      } else {                          // K % 4 == 0: whole words
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool ok = n < N && kw0 + e < kw;
-          cp_async4(dst + e, ok ? src + e : w, ok ? 4 : 0);
+          const bool ok = m < a.M && k + 4 * e < a.K;
+          cp_async4(dst + 4 * e, ok ? src + 4 * e : a.x, ok ? 4 : 0);
         }
       }
     }
+    load_weights<WK>(a, Raw + buf * T::RAW, k0, n0, tid);
   };
 
   int acc[2][4][4];
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0;
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
 
 #pragma unroll
   for (int s = 0; s < T_STAGES - 1; ++s) {
@@ -696,24 +1172,13 @@ planes_mma_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ w,
     const int buf = st % T_STAGES;
     cp_async_wait<T_STAGES - 2>();        // this stage's copies have landed
     __syncthreads();                      // ... everyone's; the last stage is consumed
-    {
-      // compose: thread = (column c, plane word e) -> 32 codes of column c
-      const int c = tid >> 2, e = tid & 3;
-      uint32_t pw[BITS], cw[8];
-#pragma unroll
-      for (int p = 0; p < BITS; ++p)
-        pw[p] = p < np ? Ws[((buf * BITS + p) * T_BN + c) * 4 + e] : 0u;
-      compose_word<BITS, BITS>(pw, cw);
-      uint4* d = reinterpret_cast<uint4*>(Bc + c * T_LD + 32 * e);
-      d[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
-      d[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
-    }
+    weights_to_codes<WK>(a, Raw + buf * T::RAW, Bc, tid);
     {
       const int nx = st + T_STAGES - 1;   // into the buffer the last stage freed
       if (nx < nst) load_stage(nx, nx % T_STAGES);
       cp_async_commit();
     }
-    __syncthreads();                      // the composed tile is complete
+    __syncthreads();                      // the code tile is complete
     const uint8_t* A = As + buf * T_BM * T_LD;
 #pragma unroll
     for (int ks = 0; ks < T_KS / 32; ++ks) {
@@ -749,18 +1214,37 @@ planes_mma_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ w,
       for (int e = 0; e < 4; ++e) {
         const int m = m0 + wm * 32 + mt * 16 + g + 8 * (e >> 1);
         const int n = n0 + wn * 32 + nt * 8 + 2 * t4 + (e & 1);
-        if (m < M && n < N)
-          store_out(out, out_acc, (size_t)m * N + n, acc[mt][nt][e], w_scale,
-                    a_scale, bias, m, n);
+        if (m < a.M && n < a.N)
+          store_out(a.out, a.out_acc, (size_t)m * a.N + n, acc[mt][nt][e], a.w_scale,
+                    a.a_scale, a.bias, m, n);
       }
 }
 
-// the streaming kernel for np live planes (a compile-time NP): persistent
-// blocks, as many as fit on the card at once, none more than the tiles.
-// The shared-memory limit and the blocks that fit at each staged size are
-// worked out at first use, not per launch: a decode tick launches this ~100
-// times, and each runtime query costs host time that the tick waits for.
-// One card per process (the serve path's).
+// one kernel name per body, so that its SASS can be checked on its own
+__global__ void __launch_bounds__(T_THREADS, 2) i8_mma_kernel(TcArgs a) {
+  mma_tile<WK_I8>(a);
+}
+__global__ void __launch_bounds__(T_THREADS, 2) s4_mma_kernel(TcArgs a) {
+  mma_tile<WK_S4>(a);
+}
+template <int BITS>
+__global__ void __launch_bounds__(T_THREADS, 2) planes_mma_kernel(TcArgs a) {
+  mma_tile<BITS == 4 ? WK_PLANES4 : WK_PLANES8>(a);
+}
+
+template <int WK, typename F>
+int launch_mma(F* kernel, const TcArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WTile<WK>::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.N + T_BN - 1) / T_BN, (a.M + T_BM - 1) / T_BM);
+  kernel<<<grid, T_THREADS, WTile<WK>::SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// -- launchers ---------------------------------------------------------------
+
+// K10's streaming kernel for np live planes (a compile-time NP)
 template <int BITS, int MS, int NP = 1>
 int launch_stream(int np, const uint8_t* x, const uint32_t* w, const float* w_scale,
                   const float* a_scale, const float* bias, void* out, int out_acc,
@@ -778,23 +1262,11 @@ int launch_stream(int np, const uint8_t* x, const uint32_t* w, const float* w_sc
     if (attr != cudaSuccess) return (int)attr;
     const int smem = M * ((K / 32 + 3) / 4) * 128;   // <= S_XMAX (launch_planes)
     static std::atomic<int> fit[S_XMAX / 128 + 1];   // smem / 128 -> blocks
-    int blocks = fit[smem / 128].load(std::memory_order_relaxed);
-    if (blocks == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      cudaError_t e = cudaGetDevice(&dev);
-      if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S_THREADS,
-                                                          smem);
-      if (e != cudaSuccess) return (int)e;
-      blocks = max(1, per_sm) * sms;
-      fit[smem / 128].store(blocks, std::memory_order_relaxed);
-    }
+    int blocks = 0;
+    if (int e = resident_blocks(kernel, smem, fit, &blocks)) return e;
     const int tiles = (N + S_COLS - 1) / S_COLS;
-    const dim3 grid(min(tiles, blocks));
-    kernel<<<grid, S_THREADS, smem, stream>>>(x, w, w_scale, a_scale, bias, out,
-                                              out_acc, M, N, K, pstride, vec);
+    kernel<<<min(tiles, blocks), S_THREADS, smem, stream>>>(
+        x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, pstride, vec);
     return (int)cudaGetLastError();
   }
 }
@@ -819,14 +1291,120 @@ int launch_planes(const void* x0, const void* w0, const float* w_scale,
     return launch_stream<BITS, SMALL_M>(np, x, w, w_scale, a_scale, bias, out,
                                         out_acc, M, N, K, pstride, vec, stream);
   }
-  constexpr int smem = tc_smem_bytes<BITS>();
+  const TcArgs a{x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, np, pstride,
+                 1, vec};
+  return launch_mma<BITS == 4 ? WK_PLANES4 : WK_PLANES8>(planes_mma_kernel<BITS>, a,
+                                                          stream);
+}
+
+template <int MS>
+int launch_s4_stream(const uint8_t* x, const uint32_t* w, const float* w_scale,
+                     const float* a_scale, const float* bias, void* out, int out_acc,
+                     int M, int N, int K, int vec, cudaStream_t stream) {
+  auto* kernel = s4_stream_kernel<MS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      planes_mma_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S_XMAX);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((N + T_BN - 1) / T_BN, (M + T_BM - 1) / T_BM);
-  planes_mma_kernel<BITS><<<grid, T_THREADS, smem, stream>>>(
-      x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, np, pstride, vec);
+  const int smem = M * ((K / 8 + 3) / 4) * 32;     // <= S_XMAX (launch_s4)
+  static std::atomic<int> fit[S_XMAX / 128 + 1];
+  int blocks = 0;
+  if (int e = resident_blocks(kernel, smem, fit, &blocks)) return e;
+  const int tiles = (N + S_COLS - 1) / S_COLS;
+  kernel<<<min(tiles, blocks), S_THREADS, smem, stream>>>(
+      x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, vec);
   return (int)cudaGetLastError();
+}
+
+// K9: s4 weights (N, K/8) x int8 activations (M, K)
+int launch_s4(const void* x0, const void* w0, const float* w_scale,
+              const float* a_scale, const float* bias, void* out, int out_acc, int M,
+              int N, int K, cudaStream_t stream) {
+  const auto* x = static_cast<const uint8_t*>(x0);
+  const auto* w = static_cast<const uint32_t*>(w0);
+  if (K % 8) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 4 || reinterpret_cast<uintptr_t>(w) % 4)
+    return (int)cudaErrorMisalignedAddress;
+  const int wvec = K % 32 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (M <= SMALL_M && (long long)M * ((K / 8 + 3) / 4) * 32 <= S_XMAX) {
+    if (M <= 4)
+      return launch_s4_stream<4>(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                                 wvec, stream);
+    return launch_s4_stream<SMALL_M>(x, w, w_scale, a_scale, bias, out, out_acc, M, N,
+                                     K, wvec, stream);
+  }
+  const int xvec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const TcArgs a{x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, 1, 0, xvec, wvec};
+  return launch_mma<WK_S4>(s4_mma_kernel, a, stream);
+}
+
+// K1's split of K across blocks: `splits` units per 32-column tile, each of
+// `span` items per k-lane. Fewest (rounds of resident blocks) x (items + 1,
+// the reduction) wins; a tie keeps fewer splits (fewer atomics).
+inline void i8_split(int tiles, int groups, int blocks, int* splits, int* span) {
+  *splits = 1;
+  *span = groups;
+  if (tiles >= blocks) return;
+  long long best = -1;
+  for (int s = 1; s <= groups; ++s) {
+    const int sp = (groups + s - 1) / s;
+    if ((groups + sp - 1) / sp != s) continue;     // s is not the fewest for sp
+    const long long cost = (((long long)tiles * s + blocks - 1) / blocks) * (sp + 1);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *splits = s;
+      *span = sp;
+    }
+  }
+}
+
+template <int MS>
+int launch_i8_stream(const uint8_t* x, const uint8_t* w, const float* w_scale,
+                     const float* a_scale, const float* bias, void* out, int out_acc,
+                     int M, int N, int K, int* ws, long long ws_ints,
+                     cudaStream_t stream) {
+  using P = I8S<MS>;
+  auto* kernel = i8_stream_kernel<MS>;
+  constexpr int RED = 4 * (S_THREADS / 32) * MS * P::TN;   // bytes
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S_XMAX + RED);
+  if (attr != cudaSuccess) return (int)attr;
+  const int nq = K / 4;
+  const int smem = ((M * nq + 3) & ~3) * 4 + RED;  // <= S_XMAX + RED (launch_i8)
+  static std::atomic<int> fit[(S_XMAX + RED) / 128 + 1];
+  int blocks = 0;
+  if (int e = resident_blocks(kernel, smem, fit, &blocks)) return e;
+  const int tiles = (N + P::TN - 1) / P::TN;
+  int splits = 1, span = 1;
+  i8_split(tiles, (nq + P::KL - 1) / P::KL, blocks, &splits, &span);
+  if (splits > 1 && (!ws || (long long)tiles * (MS * P::TN + 1) > ws_ints))
+    return (int)cudaErrorInvalidValue;
+  const int xvec = (M * nq) % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec = N % P::COLS == 0 && reinterpret_cast<uintptr_t>(w) % (4 * P::CW) == 0;
+  kernel<<<min(tiles * splits, blocks), S_THREADS, smem, stream>>>(
+      x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, splits, span, ws, xvec, vec);
+  return (int)cudaGetLastError();
+}
+
+// K1: int8 activations (M, K) x K-major int8 weights (K, N)
+int launch_i8(const void* x0, const void* w0, const float* w_scale,
+              const float* a_scale, const float* bias, void* out, int out_acc, int M,
+              int N, int K, int* ws, long long ws_ints, cudaStream_t stream) {
+  const auto* x = static_cast<const uint8_t*>(x0);
+  const auto* w = static_cast<const uint8_t*>(w0);
+  if (K % 4 || N % 4) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 4 || reinterpret_cast<uintptr_t>(w) % 4)
+    return (int)cudaErrorMisalignedAddress;
+  if (M <= SMALL_M && (long long)M * K <= S_XMAX) {
+    if (M <= 4)
+      return launch_i8_stream<4>(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                                 ws, ws_ints, stream);
+    return launch_i8_stream<SMALL_M>(x, w, w_scale, a_scale, bias, out, out_acc, M, N,
+                                     K, ws, ws_ints, stream);
+  }
+  const int xvec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int wvec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const TcArgs a{x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, 1, 0, xvec, wvec};
+  return launch_mma<WK_I8>(i8_mma_kernel, a, stream);
 }
 
 }  // namespace
@@ -837,8 +1415,9 @@ extern "C" void repro_gemm_tile(int* bm, int* bn, int* kt) {
   *kt = KT;
 }
 
-// One launch of `groups` GEMMs (groups = 1: the ungrouped call) on `stream`;
-// returns the launch's cudaError_t.
+// One launch of gemm_kernel over `groups` GEMMs (groups = 1: an ungrouped
+// call of the bodies that still run it) on `stream`; returns the launch's
+// cudaError_t.
 static int launch(int body, int groups, const void* x0, const void* x1,
                   const void* w0, const void* w1, const float* w_scale,
                   const float* a_scale, const float* bias, void* out,
@@ -875,23 +1454,36 @@ static int launch(int body, int groups, const void* x0, const void* x1,
 // K: the contraction length in elements (a multiple of every side's
 // storage unit; the wrapper checks). w_planes / w_plane_stride: the live
 // planes P (1 <= P <= the body's BITS) of a plane-stacked weight and the
-// words between two planes; ignored by the other bodies. The plane bodies
-// run planes_stream_kernel up to SMALL_M rows and planes_mma_kernel above;
-// their activation rows must be 16-byte aligned.
+// words between two planes; ignored by the other bodies. The int8 (K1),
+// s4 (K9) and plane (K10) bodies run their streaming kernel up to SMALL_M
+// rows and their tensor-core kernel above; the plane bodies' activation
+// rows must be 16-byte aligned, K1's and K9's operands 4-byte aligned.
+// ws / ws_ints: a zeroed int32 scratch of ws_ints ints for K1's split of K
+// across blocks; the kernel leaves it zeroed. Launches on one stream may
+// share it, launches on two streams may not.
 extern "C" int repro_gemm(int body, const void* x0, const void* x1,
                           const void* w0, const void* w1, const float* w_scale,
                           const float* a_scale, const float* bias, void* out,
                           int out_acc, int M, int N, int K, int w_planes,
-                          long long w_plane_stride, cudaStream_t stream) {
+                          long long w_plane_stride, int* ws, long long ws_ints,
+                          cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if (body == BODY_PLANES_W4)
-    return launch_planes<4>(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K,
-                            w_planes, w_plane_stride, stream);
-  if (body == BODY_PLANES_W8)
-    return launch_planes<8>(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K,
-                            w_planes, w_plane_stride, stream);
-  return launch(body, 1, x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc,
-                M, N, K, 0, 0, stream);
+  switch (body) {
+    case BODY_PLANES_W4:
+      return launch_planes<4>(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                              w_planes, w_plane_stride, stream);
+    case BODY_PLANES_W8:
+      return launch_planes<8>(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                              w_planes, w_plane_stride, stream);
+    case BODY_I8:
+      return launch_i8(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K, ws,
+                       ws_ints, stream);
+    case BODY_INT4_W_I8A:
+      return launch_s4(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K, stream);
+    default:
+      return launch(body, 1, x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc,
+                    M, N, K, 0, 0, stream);
+  }
 }
 
 // K11: `groups` GEMMs of one (M, N, K) shape in one launch. Every operand is

@@ -27,7 +27,28 @@ def gemm_kernel() -> Kernel:
     """A launcher of `repro_gemm` (csrc/gemm.cu) with its own launch count;
     each MacBody holds one, so launches are counted per body."""
     return Kernel("gemm", "repro_gemm",
-                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L])
+                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
+                   _P, _L])
+
+
+#: ints of the zeroed scratch an ungrouped launch may use for a sum across
+#: blocks (K1 splits K across blocks at decode; it needs at most 257 ints a
+#: 32-column tile, and splits only when the tiles are fewer than the
+#: resident blocks, at most 16 a multiprocessor)
+WORKSPACE_INTS = 1 << 20
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(dev: torch.device, stream: int) -> torch.Tensor:
+    """The zeroed int32 scratch of `stream` on `dev`, allocated at its first
+    use; every kernel leaves it zeroed, so launches on one stream share it
+    and launches on two streams never do."""
+    key = (dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = torch.zeros(WORKSPACE_INTS, dtype=torch.int32,
+                                            device=dev)
+    return ws
 
 
 #: the grouped launcher (K11, `repro_gemm_grouped`): one count over every
@@ -175,9 +196,12 @@ def gemm(body: MacBody, x_ops: Sequence[torch.Tensor],
     # a plane stack: its live planes and the words from one plane to the next
     planes, stride = ((w_ops[0].shape[0], w_ops[0].stride(0)) if body.w_stack
                       else (1, 0))
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = _workspace(dev, stream)
     body.kernel(body.body_id, *_ptrs(body, x_ops, w_ops),
                 *(_ptr(t) if rq else None for t in (w_scale, a_scale, bias)),
-                y.data_ptr(), int(not rq), m, n, k, planes, stride)
+                y.data_ptr(), int(not rq), m, n, k, planes, stride,
+                ws.data_ptr(), ws.numel(), stream=stream)
     return y
 
 

@@ -2,9 +2,11 @@
 (counterpart of `repro.kernels.i4gemm`, INT4_W_I8A).
 
 Weights are s4 codes packed 8 per 32-bit word (`core.pack.pack_int4`),
-activations int8 codes. The CUDA body (`csrc/gemm.cu`, BODY_INT4_W_I8A)
-unpacks each nibble word into two words of four int8 codes in shared memory
-and runs the __dp4a loop of the int8 body; the plain version unpacks with
+activations int8 codes. On the card (`csrc/gemm.cu`, BODY_INT4_W_I8A) up
+to 8 rows run `s4_stream_kernel` (the nibble words streamed through
+registers and unpacked a word at a time for `__dp4a`) and more rows
+`s4_mma_kernel` (unpacked into an int8 tile for the tensor cores); a grouped
+call (K11) runs `gemm_kernel`. The plain version unpacks with
 `core.pack.unpack_int4_i8` and takes the same integer dot in torch.
 """
 from __future__ import annotations

@@ -1,8 +1,12 @@
 """int8 MAC body — the 8-bit vMAC path (counterpart of `repro.kernels.i8gemm`).
 
 (M, K) int8 activation codes x K-major (K, N) int8 weight codes -> int32.
-The CUDA body (`csrc/gemm.cu`, BODY_I8) does four MACs per `__dp4a`; the
-plain version below is the same integer dot in torch.
+On the card (`csrc/gemm.cu`, BODY_I8) up to 8 rows run `i8_stream_kernel`
+(the weights streamed through registers, byte-transposed into `__dp4a`
+words, K split across blocks when the column tiles are too few to fill the
+card) and more rows `i8_mma_kernel` (the int8 tensor cores); a grouped call
+(K11) runs `gemm_kernel`. The plain version below is the same integer dot
+in torch.
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ imports no JAX, so it runs on a machine that has only torch:
 
 Bars: the GEMM kernel's int32 accumulator and bf16 requant output are
 bit-equal to the plain version for every MAC body (ragged M and N, with and
-without bias), and the mxu bodies' accumulators equal the popcount bodies';
+without bias; K1 and K9 in both of their kernels, K1 with K split across
+blocks), and the mxu bodies' accumulators equal the popcount bodies';
 the plane bodies (K10) are bit-equal to their plain version at every
 truncation depth P in 1..bits, in both regimes (up to 8 rows and above),
 and at P = bits to the direct int8 and int4 bodies on the composed codes;
@@ -71,10 +72,25 @@ def _operands(body, m, n, k, gen):
     return x, w, scales
 
 
+_GEMM_SHAPES = [(1, 128, 96), (5, 256, 100), (33, 3072, 200), (4, 8192, 3072)]
+#: K1 and K9 on each side of their switch from the streaming kernel (up to 8
+#: rows) to the tensor-core kernel: K ragged against the 128-k stage and the
+#: 16-byte loads (int8 K = 132, 3076; s4 K = 136), N ragged (a multiple of 4
+#: for K1's K-major weights) or 16-byte aligned (3072). K1 at K = 3076, N =
+#: 228 splits K across blocks unevenly at 4 and 8 rows (769 k-quads: the
+#: last split holds one).
+_K1_K9_SHAPES = {
+    i8gemm.I8_DOT: [(132, 100), (3076, 228), (1024, 3072)],
+    i4gemm.INT4_W_I8A: [(136, 100), (1024, 3072)],
+}
+_GEMM_CASES = ([(b, *s) for b in BODIES for s in _GEMM_SHAPES]
+               + [(b, m, k, n) for b, kn in _K1_K9_SHAPES.items()
+                  for m in (1, 4, 8, 9, 16, 33, 256) for k, n in kn])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 128, 96), (5, 256, 100), (33, 3072, 200),
-                                   (4, 8192, 3072)])
-@pytest.mark.parametrize("body", BODIES, ids=lambda b: b.name)
+@pytest.mark.parametrize("body,m,k,n", _GEMM_CASES,
+                         ids=[f"{b.name}-{m}-{k}-{n}" for b, m, k, n in _GEMM_CASES])
 def test_gemm_kernel_bit_equal_to_plain(cuda, body, m, k, n):
     gen = torch.Generator().manual_seed(m * 1000 + n)
     x, w, (ws, as_, b) = _operands(body, m, n, k, gen)
