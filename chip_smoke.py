@@ -10,14 +10,18 @@ Phases:
                (one nvcc per source, in parallel) for sm_90a; prints each
                kernel's registers and spills, and fails unless the SASS
                (cuobjdump) of K6's bf16 kernel holds HMMA/HGMMA and that of
-               the large-M kernels of K1, K9 and K10 IMMA/IGMMA instructions
+               the large-M kernels of K1, K7 (binary and ternary), K9 and
+               K10 IMMA/IGMMA instructions
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, at the serve path's full llama3.2-3b shapes: the packed
-               GEMM under each of its seven MAC bodies at M = 4, 32 and 256
-               (int32 accumulator and bf16 requant output bit-equal, bias
-               on and off; the mxu bodies' accumulators equal the popcount
-               bodies'; K9 at qkv, out, up and down, the shapes w4a8 runs
-               it at; K1's and K9's decode ticks also timed back to back),
+               GEMM under each of its seven MAC bodies at M = 4, 32 and 256,
+               the mxu bodies (K7) and their popcount twins also at M = 8
+               and 9, each side of K7's switch from its streaming kernel to
+               its tensor-core kernel (int32 accumulator and bf16 requant
+               output bit-equal, bias on and off; the mxu bodies'
+               accumulators equal the popcount bodies'; K9 at qkv, out, up
+               and down, the shapes w4a8 runs it at; K1's and K9's decode
+               ticks also timed back to back),
                the plane-composed bodies (K10, int4 and int8
                stacks) at P = 1, 2 and bits live planes and M = 4, 7, 9,
                13, 16, 32, 40 and 256 (both regimes; bit-equal, and at P =
@@ -26,8 +30,9 @@ Phases:
                2e-2), flash attention (T = 256 and 2048, bf16, within 3e-2),
                and the grouped GEMM (K11) at the full-width expert shapes of
                deepseek-moe-16b (G = 64) and phi3.5-moe-42b-a6.6b (G = 16),
-               M = 16 and 128 rows per expert, K9 and K1 bodies (bit-equal
-               to the plain version and to G ungrouped launches); with
+               M = 4, 16 and 128 rows per expert (1- and 4-slot decode, a
+               prefill slab), K9 and K1 bodies (bit-equal to the plain
+               version and to G ungrouped launches); with
                kernel, plain and library times and the bound of each
   4. serve   — full-width, 28-layer llama3.2-3b from the port's seeded init,
                8 requests through the paged continuous-batching server:
@@ -130,9 +135,15 @@ PAGED_POS = (1, 77, 160, 255)  # 4 slots, positions spread over 1..255
 
 _GEMM = "src/repro/kernels/harness.py:240 (gemm, {} body {})"
 MOE_ARCHS = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b")
-#: rows per expert of the grouped GEMM: a 4-slot decode tick (4 slots x
-#: capacity 4) and a prefill-sized slab
-GROUPED_ROWS = (16, 128)
+#: rows per expert of the grouped GEMM: a 1-slot and a 4-slot decode tick
+#: (slots x capacity 4) and a prefill-sized slab
+GROUPED_ROWS = (4, 16, 128)
+TICK_ROWS = 16               # the 4-slot decode tick's, timed per tick
+#: GEMM rows checked: decode (4 slots), both prefill buckets, and for the
+#: mxu bodies (K7) and their popcount twins each side of K7's switch from
+#: its streaming kernel (up to 8 rows) to its tensor-core kernel
+GEMM_ROWS = (SLOTS, PREFILL_BUCKET, LONG_BUCKET)
+MXU_ROWS = (SLOTS, 8, 9, PREFILL_BUCKET, LONG_BUCKET)
 REPLACES = {
     "i8gemm": _GEMM.format("I8_DOT", "i8gemm.py:18"),
     "bgemm_popcount": _GEMM.format("BINARY_POPCOUNT", "bgemm.py:29"),
@@ -155,6 +166,7 @@ SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attn.cu"
 ATTENTION_KERNELS = ("paged_flash_decode", "flash_attention")
 #: mxu body -> the popcount body whose accumulator it must equal
 MXU_TWIN = {"bgemm_mxu": "bgemm_popcount", "tgemm_mxu": "tgemm_popcount"}
+TWINNED = set(MXU_TWIN) | set(MXU_TWIN.values())
 #: layers of one decode tick that run each mixed body (het's assignment)
 TICK_LAYERS = {"tgemm_wt_i8a": ("out", "down"), "i4gemm_w4a8": ("up",)}
 #: shapes checked for a body beyond its tick's: w4a8 runs K9 on every body
@@ -211,9 +223,11 @@ def phase_device() -> str:
 
 #: (library, kernel whose SASS must hold tensor-core instructions, opcodes)
 TENSOR_CORE_KERNELS = [("flash_attn", "flash_mma_kernel", ("HMMA", "HGMMA")),   # K6
-                       ("gemm", "i8_mma_kernel", ("IMMA", "IGMMA")),            # K1
-                       ("gemm", "s4_mma_kernel", ("IMMA", "IGMMA")),            # K9
-                       ("gemm", "planes_mma_kernel", ("IMMA", "IGMMA"))]        # K10
+                       ("gemm", "i8_mma_kernel", ("IMMA", "IGMMA")),            # K1, K11
+                       ("gemm", "s4_mma_kernel", ("IMMA", "IGMMA")),            # K9, K11
+                       ("gemm", "planes_mma_kernel", ("IMMA", "IGMMA")),        # K10
+                       ("gemm", "bmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7
+                       ("gemm", "tmxu_mma_kernel", ("IMMA", "IGMMA"))]          # K7
 
 
 def ptxas_report(name: str, text: str) -> None:
@@ -236,7 +250,8 @@ def ptxas_report(name: str, text: str) -> None:
 def sass_tensor_cores() -> None:
     """cuobjdump -sass (the toolkit's, beside nvcc) of the built libraries:
     K6's bf16 kernel must hold HMMA (or HGMMA) and the large-M kernels of
-    K1, K9 and K10 IMMA (or IGMMA) instructions."""
+    K1, K7, K9 and K10 IMMA (or IGMMA) instructions (each instantiation:
+    K1's and K9's row tiles, K10's bit widths)."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
@@ -334,7 +349,8 @@ def unpacked_i8(body, x_ops, w_ops, k):
 def check_gemm(body, cfg, flush, gen, accs) -> dict:
     """Kernel vs plain at every serve GEMM shape the body runs (its tick's,
     TICK_LAYERS, and CHECK_LAYERS), at M = SLOTS (decode) and at both
-    prefill buckets; returns the per-decode-tick record over its tick's
+    prefill buckets (MXU_ROWS for K7 and its twins); returns the
+    per-decode-tick record over its tick's
     layers. `accs` collects each shape's int32 accumulator, so that an mxu
     body can be held against its popcount twin on the same operands (same
     seed). K1's and K9's decode ticks are also timed back to back."""
@@ -342,7 +358,7 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
     tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0, "lib": 0.0}
     layers = TICK_LAYERS.get(body.name)
     checked = CHECK_LAYERS.get(body.name, layers)
-    for m in (SLOTS, PREFILL_BUCKET, LONG_BUCKET):
+    for m in MXU_ROWS if body.name in TWINNED else GEMM_ROWS:
         for si, (name, n, k, per_tick) in enumerate(gemm_shapes(cfg)):
             if checked is not None and name not in checked:
                 continue
@@ -433,7 +449,7 @@ def grouped_plain(body, x_ops, w_ops, ws, as_, bias, k, out="requant"):
 def check_grouped(flush, gen) -> dict:
     """K11 vs its plain version and vs G ungrouped launches of the same
     body, at the full-width expert shapes of deepseek-moe-16b and
-    phi3.5-moe-42b-a6.6b, at M = 16 and 128 rows per expert, under the K9
+    phi3.5-moe-42b-a6.6b, at M = 4, 16 and 128 rows per expert, under the K9
     (het's experts) and K1 (int8's experts) bodies: int32 accumulator and
     bf16 output (bias on and off) bit-equal. Returns the record of a
     4-slot deepseek-moe-16b het decode tick: 28 layers x {up, down} at M =
@@ -488,7 +504,7 @@ def check_grouped(flush, gen) -> dict:
                            f"{g} ungrouped launches  kernel {ms:.4f} ms  bound "
                            f"{max(t_b, t_o) * 1e3:.4f} ms "
                            f"({'bytes' if t_b >= t_o else 'operations'})")
-                    if m == GROUPED_ROWS[0]:
+                    if m == TICK_ROWS:
                         pms = time_ms(lambda: grouped_plain(body, x_ops, w_ops, ws,
                                                             as_, None, k), 1)
                         msg += f"  plain {pms:.2f} ms"

@@ -4,8 +4,8 @@ counterpart of `repro.kernels`.
 harness    — the output-stationary packed GEMM template (csrc/gemm.cu), its
              fused requant epilogue, and the grouped launch (K11)
 i8gemm     — int8 x int8 body (__dp4a)
-bgemm      — binary bodies: XNOR+popcount, and ±1 unpack + __dp4a (mxu)
-tgemm      — ternary bodies: gated XNOR, trit unpack + __dp4a (mxu), and
+bgemm      — binary bodies: XNOR+popcount, and ±1 unpack + int8 dot (mxu)
+tgemm      — ternary bodies: gated XNOR, trit unpack + int8 dot (mxu), and
              trit weights x int8 activations
 i4gemm     — s4 nibble weights x int8 activations
 pgemm      — int4/int8 weights as stacked binary planes x int8 activations

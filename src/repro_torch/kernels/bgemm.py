@@ -7,9 +7,12 @@ Two formulations of the same integer dot:
                     `__popc(x ^ w)` mismatches; the dot is K - 2*mismatches.
                     The plain version is `core.pack.binary_dot_words`.
   BINARY_MXU      — both sides unpacked to ±1 int8 and dotted (the
-                    reference's MXU body; on the card BODY_BINARY_MXU
-                    unpacks in shared memory and runs __dp4a). The dot is
-                    integer-exact, so it equals BINARY_POPCOUNT's.
+                    reference's MXU body; on the card BODY_BINARY_MXU runs
+                    `bmxu_stream_kernel` up to 8 rows, __dp4a on weight
+                    words unpacked in registers, and `bmxu_mma_kernel`
+                    above, the int8 tensor cores on both sides unpacked in
+                    shared memory). The dot is integer-exact, so it equals
+                    BINARY_POPCOUNT's.
 """
 from __future__ import annotations
 

@@ -22,11 +22,11 @@
 // or the raw int32 dot when out_acc != 0 (the reference's out="acc").
 //
 // Storage formats (every packed operand is a run of 32-bit words per row):
-//   F_I8        (R, K) int8 codes, read four to a word (K/4 words per row)
-//   F_I8_KMAJOR (K, N) int8 weight codes
-//   F_BITS      K/32 words, bit k of word j = operand 32j+k (1 encodes +1)
-//   F_TRITS     two F_BITS planes, mask (non-zero) and sign (negative)
-//   F_S4        K/8 words, nibble j of word i = s4 code 8i+j
+//   int8        (R, K) int8 codes, read four to a word (K/4 words per row)
+//   K-major     (K, N) int8 weight codes
+//   bits        K/32 words, bit k of word j = operand 32j+k (1 encodes +1)
+//   trits       two bits planes, mask (non-zero) and sign (negative)
+//   s4          K/8 words, nibble j of word i = s4 code 8i+j
 //   planes      a stack of P <= BITS binary planes (P, N, K/32), MSB-first
 //               two's complement: plane 0 is the sign plane (coefficient
 //               -2^(BITS-1)), plane i has coefficient 2^(BITS-1-i); plane i
@@ -37,61 +37,63 @@
 // MAC kinds. The popcount bodies work on packed words directly: XNOR sums
 // __popc(x ^ w) mismatches (dot = K - 2 * mismatches), gated XNOR keeps
 // active and disagree counts (dot = active - 2 * disagree). Every other
-// body is an int8 body: each side becomes words of four consecutive int8
-// values of k (little-endian, the byte order of an int8 activation row read
-// as a word), multiplied by __dp4a (four MACs) or by the int8 tensor cores.
-// int8 rows are copied; K-major int8 weights are byte-transposed four
-// columns at a time; bits, trits and nibbles are unpacked to ±1, {-1, 0,
-// +1} and sign-extended s4 bytes. The P live plane words of a plane stack
-// are composed into the codes sum_i coeff_i * bit_i (each fits an int8,
+// body is an int8 body: each side becomes words of four int8 codes of k,
+// multiplied by __dp4a (four MACs) or by the int8 tensor cores. int8 rows
+// are copied; K-major int8 weights are byte-transposed four columns at a
+// time; bits, trits and nibbles are unpacked to ±1, {-1, 0, +1} and
+// sign-extended s4 bytes. The P live plane words of a plane stack are
+// composed into the codes sum_i coeff_i * bit_i (each fits an int8,
 // truncated or not: a missing plane contributes 0), so the plane kernels'
 // dot is integer-identical to the reference's per-plane sum sum_i coeff_i *
 // (x . plane_i). The reference's MXU bodies dot the unpacked values in f32
-// and cast; this port takes the integer dot, which is the same number and
-// equals the popcount bodies' dot bit for bit.
+// and cast; this port takes the integer dot of the ±1 / trit codes, which
+// is the same number and equals the popcount bodies' dot bit for bit.
 //
 // Which kernel runs each body:
-// - K1 (BODY_I8), K9 (BODY_INT4_W_I8A) and K10 (the plane bodies), called
-//   ungrouped, run two kernels each, chosen by M. Up to SMALL_M = 8 rows
-//   (decode and draft rows of 4 slots) a weight-streaming kernel:
-//   persistent blocks stage the activations once and stream the weights
-//   through registers with 16-byte loads, the next item's in flight while
-//   this one is multiplied, bound by the weight bytes (each weight byte
-//   feeds at most 8 rows). Above 8 rows (verify rows, the prefill buckets)
-//   one int8 tensor-core tile (mma.sync m16n8k32 s8, 128 x 64, a 3-stage
-//   cp.async ring) with each body's own weight stage into a padded int8
-//   code tile:
+// - K1 (BODY_I8), K7 (BODY_BINARY_MXU, BODY_TERNARY_MXU), K9
+//   (BODY_INT4_W_I8A) and K10 (the plane bodies), called ungrouped, run two
+//   kernels each, chosen by M. Up to SMALL_M = 8 rows (decode and draft
+//   rows of 4 slots) a weight-streaming kernel: persistent blocks stage the
+//   activations once (as int8 codes: K7 unpacks its bits or trits there)
+//   and stream the weights through registers with 16-byte loads, the next
+//   item's in flight while this one is multiplied, bound by the weight
+//   bytes and the launch floor (each weight byte feeds at most 8 rows).
+//   Above 8 rows (verify rows, the prefill buckets) one int8 tensor-core
+//   tile (mma.sync m16n8k32 s8, 128 x 64, a 3-stage cp.async ring) with
+//   each body's own weight stage into a padded int8 code tile, and for K7
+//   an activation stage too:
 //     K1   i8_stream_kernel (K split across blocks, int32 atomics)  i8_mma_kernel
+//     K7   bmxu_stream_kernel / tmxu_stream_kernel                   bmxu_mma_kernel / tmxu_mma_kernel
 //     K9   s4_stream_kernel                                          s4_mma_kernel
 //     K10  planes_stream_kernel                                      planes_mma_kernel
 //   Each kernel's design is written above it.
-// - gemm_kernel runs the popcount, mxu and ternary x int8 bodies (K3, K4,
-//   K7, K8) and every grouped launch (K11), K1's and K9's bodies included.
-//   The TPU grid's sequential K axis becomes a loop inside the block: a
-//   block owns one BM x BN output tile, walks K in KT-word stages through
-//   shared memory (KT packed words = 1024 k for the popcount bodies, KT
-//   four-code words = 128 k for the __dp4a bodies), and keeps its int32
-//   accumulators in registers. Each warp owns one output column per lane
-//   and rows warp, warp+4, ... of the tile; rows past M are skipped
-//   warp-uniformly and columns past N are masked, so ragged M and N need no
-//   padding (the Pallas path pads M to 8). Bound: at decode (M = 4..32 rows)
-//   every weight word is used by only M rows, so the bytes of the packed
-//   weights (1, 2, 4 or 8 bits per weight) bound it, far below the
-//   integer-op roof; it coalesces the weight loads and keeps the tile small
-//   (BN = 32) so that the N/32 blocks spread over all SMs, but does not
-//   pipeline the loads (32-word stages, two barriers each, one load in
-//   flight per thread) or use the tensor cores: its bodies are later
-//   redesigns.
-//
-// Groups (K11). `repro_gemm_grouped` runs G independent GEMMs of one shape
-// in one launch of gemm_kernel, the grid's third dimension over the groups:
-// every operand carries a leading G axis (x (G, M, .), w (G, N, .) or (G,
-// K, N), w_scale and bias (G, N), a_scale (G, M), out (G, M, N)), and a
-// block offsets each pointer by its group's stride and runs the unchanged
-// body and epilogue. The MoE expert projections are G = E weight stacks at
-// decode M = slots x capacity (16 for 4 slots): the same weight-byte bound,
-// summed over the experts, with E times the blocks of one expert's GEMM in
-// flight.
+// - Grouped (K11, `repro_gemm_grouped`: G GEMMs of one shape in one
+//   launch, every operand with a leading G axis: x (G, M, .), w (G, N, .)
+//   or (G, K, N), w_scale and bias (G, N), a_scale (G, M), out (G, M, N)),
+//   the int8 and s4 bodies run i8_mma_kernel / s4_mma_kernel at every M
+//   with blockIdx.z over the groups, on a 16-row tile (BN = 128) up to
+//   G_SMALL_M = 16 rows and the 128-row one above. The MoE expert
+//   projections are G = E weight stacks at decode M = slots x capacity (16
+//   for 4 slots): the weight bytes of all experts bound them.
+// - gemm_kernel runs the popcount bodies (K3, K4) and wt-i8a (K8), grouped
+//   or not, and the grouped mxu bodies; no MoE configuration the port
+//   serves sends a binary, ternary, mxu or wt-i8a body to K11 (w-ternary
+//   experts are weight-only). The TPU grid's sequential K axis becomes a
+//   loop inside the block: a block owns one BM x BN output tile, walks K
+//   in KT-word stages through shared memory (KT packed words = 1024 k for
+//   the popcount bodies, KT four-code words = 128 k for the __dp4a
+//   bodies), and keeps its int32 accumulators in registers. Each warp owns
+//   one output column per lane and rows warp, warp+4, ... of the tile;
+//   rows past M are skipped warp-uniformly and columns past N are masked,
+//   so ragged M and N need no padding (the Pallas path pads M to 8); a
+//   grouped launch's grid has a third dimension over the groups. Bound: at
+//   decode (M = 4..32 rows) every weight word is used by only M rows, so
+//   the bytes of the packed weights (1 or 2 bits per weight) bound it, far
+//   below the integer-op roof; it coalesces the weight loads and keeps the
+//   tile small (BN = 32) so that the N/32 blocks spread over all SMs, but
+//   does not pipeline the loads (32-word stages, two barriers each, one
+//   load in flight per thread) or use the tensor cores: its bodies are
+//   later redesigns.
 //
 // Exactness. The epilogue keeps the reference's order exactly and uses
 // __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA, and rounds
@@ -119,7 +121,7 @@ constexpr int RPT = BM / WARPS;  // rows per thread
 enum { BODY_I8 = 0, BODY_BINARY = 1, BODY_TERNARY = 2, BODY_BINARY_MXU = 3,
        BODY_TERNARY_MXU = 4, BODY_TERNARY_W_I8A = 5, BODY_INT4_W_I8A = 6,
        BODY_PLANES_W4 = 7, BODY_PLANES_W8 = 8 };
-enum { F_I8, F_I8_KMAJOR, F_BITS, F_TRITS, F_S4 };
+enum { F_I8, F_BITS, F_TRITS };
 enum { MAC_XNOR, MAC_GXNOR, MAC_DP4A };
 
 template <int MAC> struct Mac;
@@ -150,18 +152,16 @@ template <> struct Mac<MAC_DP4A> {
   __device__ static int finish(const int* acc, int) { return acc[0]; }
 };
 
-// the bodies of gemm_kernel (the plane bodies run the kernels further down)
+// the bodies of gemm_kernel (the others run the kernels further down)
 template <int BODY> struct Body;
-template <> struct Body<BODY_I8>            { static constexpr int XF = F_I8,    WF = F_I8_KMAJOR, MAC = MAC_DP4A;  };
 template <> struct Body<BODY_BINARY>        { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_XNOR;  };
 template <> struct Body<BODY_TERNARY>       { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_GXNOR; };
 template <> struct Body<BODY_BINARY_MXU>    { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_DP4A;  };
 template <> struct Body<BODY_TERNARY_MXU>   { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_DP4A;  };
 template <> struct Body<BODY_TERNARY_W_I8A> { static constexpr int XF = F_I8,    WF = F_TRITS,     MAC = MAC_DP4A;  };
-template <> struct Body<BODY_INT4_W_I8A>    { static constexpr int XF = F_I8,    WF = F_S4,        MAC = MAC_DP4A;  };
 
 // K elements per stored 32-bit word of a (row-major) format
-template <int F> struct Fmt { static constexpr int K_PER_WORD = F == F_S4 ? 8 : F == F_I8 ? 4 : 32; };
+template <int F> struct Fmt { static constexpr int K_PER_WORD = F == F_I8 ? 4 : 32; };
 
 // Bytes b0..b3 (each the low 8 bits of an int) as one little-endian word.
 __device__ __forceinline__ uint32_t word4(int b0, int b1, int b2, int b3) {
@@ -180,17 +180,6 @@ __device__ __forceinline__ uint32_t unpack_trits4(uint32_t m, uint32_t s) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     v[i] = ((m >> i) & 1) ? (((s >> i) & 1) ? -1 : 1) : 0;
-  return word4(v[0], v[1], v[2], v[3]);
-}
-
-// Four sign-extended s4 codes from the low 16 bits of `nib`.
-__device__ __forceinline__ uint32_t unpack_s4x4(uint32_t nib) {
-  int v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = (nib >> (4 * i)) & 0xF;
-    v[i] = c >= 8 ? c - 16 : c;
-  }
   return word4(v[0], v[1], v[2], v[3]);
 }
 
@@ -229,8 +218,7 @@ __device__ __forceinline__ void stage_rows(uint32_t (*dst)[R][KT + 1],
       for (int j = 0; j < Q; ++j) {
         uint32_t v;
         if constexpr (F == F_BITS) v = unpack_bits4(a >> (4 * j));
-        else if constexpr (F == F_TRITS) v = unpack_trits4(a >> (4 * j), b >> (4 * j));
-        else v = unpack_s4x4(a >> (16 * j));
+        else v = unpack_trits4(a >> (4 * j), b >> (4 * j));
         dst[0][r][c * Q + j] = ok ? v : 0u;
       }
     }
@@ -253,25 +241,6 @@ __device__ __forceinline__ void store_out(void* out, int out_acc, size_t idx,
   if (a_scale) y = __fmul_rn(y, a_scale[m]);
   if (bias) y = __fadd_rn(y, bias[n]);
   static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
-}
-
-// K-major (K, N) int8 weights: load 4 columns of one k row as a word
-// (coalesced along N) and scatter its bytes so that dst[0][n][c] holds
-// k = 4(ku0+c) .. 4(ku0+c)+3 of column n, little-endian like x.
-__device__ __forceinline__ void stage_kmajor(uint32_t (*dst)[BN][KT + 1],
-                                             const uint32_t* w, int n0, int N,
-                                             int ku0, int K, int tid) {
-  const uint8_t* wb = reinterpret_cast<const uint8_t*>(w);
-  uint8_t* d = reinterpret_cast<uint8_t*>(&dst[0][0][0]);
-  for (int i = tid; i < 4 * KT * (BN / 4); i += THREADS) {
-    const int kr = i / (BN / 4), cw = i % (BN / 4);
-    const int k = 4 * ku0 + kr, n = n0 + 4 * cw;
-    uint32_t v = 0;
-    if (k < K && n < N) v = *reinterpret_cast<const uint32_t*>(wb + (size_t)k * N + n);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      d[(4 * cw + j) * (KT + 1) * 4 + kr] = static_cast<uint8_t>(v >> (8 * j));
-  }
 }
 
 template <int BODY>
@@ -311,11 +280,8 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
 
   for (int ku0 = 0; ku0 < KU; ku0 += KT) {
     stage_rows<B::XF, B::MAC, C::PLANES, BM>(xs, x0, x1, m0, rows, ku0, K, tid);
-    if constexpr (B::WF == F_I8_KMAJOR)
-      stage_kmajor(ws, w0, n0, N, ku0, K, tid);
-    else
-      stage_rows<B::WF, B::MAC, C::PLANES, BN>(ws, w0, w1, n0, min(BN, N - n0),
-                                               ku0, K, tid);
+    stage_rows<B::WF, B::MAC, C::PLANES, BN>(ws, w0, w1, n0, min(BN, N - n0), ku0, K,
+                                             tid);
     __syncthreads();
 
     const int kt = min(KT, KU - ku0);
@@ -351,7 +317,7 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
 
 
 // ---------------------------------------------------------------------------
-// Shared by the K1, K9 and K10 kernels below
+// Shared by the K1, K7, K9 and K10 kernels below
 // ---------------------------------------------------------------------------
 
 // A 4 x 4 byte transpose: byte i of o[L] is byte L of in[i].
@@ -514,29 +480,102 @@ __device__ __forceinline__ void compose_word(const uint32_t* pw, uint32_t* out) 
   interleave32<true>(w, out);
 }
 
-// -- small M: stream the plane words ----------------------------------------
+// ±1 or trit int8 codes of one 32-k word of bits (NP = 1; bit = 1 encodes
+// +1) or of a (mask, sign) pair of words (NP = 2), as eight words in
+// planes_to_codes' k-interleaved order: byte L of cw[r] is the code of k =
+// 8L + r, so bit r of each byte is picked by one whole-word shift and mask,
+// with no per-bit branch and no transpose. With b those bits as 0/1
+// bytes, ±1 = 0xFFFFFFFF - b * 0xFE (0xFF = -1 where b = 0, 0x01 where b =
+// 1: no borrow between bytes) and a trit = m + (m & s) * 0xFE (0, 0x01, or
+// 0xFF = -1: no carry), the integer form of mask - 2 (mask & sign).
+template <int NP>
+__device__ __forceinline__ void mxu_codes(const uint32_t* pw, uint32_t* cw) {
+  static_assert(NP == 1 || NP == 2, "bits or (mask, sign) trits");
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const uint32_t b = (pw[0] >> r) & 0x01010101u;
+    if constexpr (NP == 1) cw[r] = 0xFFFFFFFFu - b * 0xFEu;
+    else cw[r] = b + ((pw[1] >> r) & b) * 0xFEu;
+  }
+}
 
-// M <= MS rows (MS = 4 or 8), NP live planes of a BITS-plane stack.
+// -- small M: stream the bit-plane words (K10, K7) ---------------------------
+
+// The two sides of a streaming kernel (stream_gemm's D). PLANES: the bit
+// planes (N, K/32) a weight column loads, plane p at w + p * pstride words;
+// weights(pw, cw): one 32-k word of each plane -> 8 code words in
+// planes_to_codes' k-interleaved order; acts(x, xpstride, m, bk, K, t): the
+// 32 k of activation row m at 32-k word bk, staged in the same order, zero
+// past K (so that padded weight codes add nothing).
+//   PlaneSide  K10: a BITS-plane stack with NP live planes x int8 rows (M,
+//              K), 16-byte aligned
+//   MxuSide    K7: bits (NP = 1) or (mask, sign) trits (NP = 2) on both
+//              sides; activations (M, K/32) words a plane, the sign plane at
+//              x + xpstride words
+template <int BITS, int NP> struct PlaneSide {
+  static constexpr int PLANES = NP;
+  __device__ static void weights(const uint32_t* pw, uint32_t* cw) {
+    planes_to_codes<BITS, NP>(pw, cw);
+  }
+  __device__ static void acts(const void* x, long long, int m, int bk, int K,
+                              uint32_t* t) {
+    uint32_t v[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    if (bk * 32 < K) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          static_cast<const uint8_t*>(x) + (size_t)m * K + bk * 32);
+      const uint4 a = src[0], b = src[1];
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+    interleave32<false>(v, t);
+  }
+};
+
+template <int NP> struct MxuSide {
+  static constexpr int PLANES = NP;
+  __device__ static void weights(const uint32_t* pw, uint32_t* cw) {
+    mxu_codes<NP>(pw, cw);
+  }
+  __device__ static void acts(const void* x, long long xpstride, int m, int bk, int K,
+                              uint32_t* t) {
+    const int kw = K / 32;
+    if (bk >= kw) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) t[r] = 0u;
+      return;
+    }
+    const uint32_t* xw = static_cast<const uint32_t*>(x) + (size_t)m * kw + bk;
+    uint32_t pw[NP];
+    pw[0] = __ldg(xw);
+    if constexpr (NP == 2) pw[1] = __ldg(xw + xpstride);
+    mxu_codes<NP>(pw, t);
+  }
+};
+
+// M <= MS rows (MS = 4 or 8) against D::PLANES weight planes.
 // Persistent blocks walk 16-column tiles blockIdx.x, + gridDim.x, ...; lane
 // 4 kl + c of a warp (column c of its 4, k-lane kl) takes the k-quads kl,
-// kl + 8, ... of column c, U of them (x NP planes of 16-byte loads) per
+// kl + 8, ... of column c, U of them (x PLANES planes of 16-byte loads) per
 // item, so that a quarter-warp reads the activations of two k-quads, each
 // broadcast to 4 lanes. The walk is
 // a stream of items (tile, batch of U quads), and the next item's loads are
 // issued before this item's codes are composed and multiplied, so one item
 // of loads is always in flight; the first item's loads also overlap the
-// staging of the activations, which happens once per block (M x K bytes in
-// dynamic shared memory, each 32 k in planes_to_codes' k-interleaved order,
-// so that a lane multiplies the transposed codes without putting them back
-// in k order; each 128-byte k-quad's eight 16-byte pieces rotated by the
-// quad index so that different k-lanes read distinct banks).
-template <int BITS, int NP, int MS>
-__global__ void __launch_bounds__(S_THREADS, 4)
-planes_stream_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ w,
-                     const float* __restrict__ w_scale,
-                     const float* __restrict__ a_scale,
-                     const float* __restrict__ bias, void* __restrict__ out,
-                     int out_acc, int M, int N, int K, long long pstride, int vec) {
+// staging of the activations, which happens once per block (M x K int8
+// codes in dynamic shared memory, each 32 k in planes_to_codes' k-interleaved
+// order, so that a lane multiplies its weight codes without putting them
+// back in k order; each 128-byte k-quad's eight 16-byte pieces rotated by
+// the quad index so that different k-lanes read distinct banks).
+template <class D, int MS>
+__device__ __forceinline__ void stream_gemm(const void* __restrict__ x, long long xpstride,
+                                            const uint32_t* __restrict__ w,
+                                            long long pstride,
+                                            const float* __restrict__ w_scale,
+                                            const float* __restrict__ a_scale,
+                                            const float* __restrict__ bias,
+                                            void* __restrict__ out, int out_acc, int M,
+                                            int N, int K, int vec) {
+  constexpr int NP = D::PLANES;
   constexpr int U = NP >= 4 ? 1 : 4 / NP;       // quads per item: 4-8 loads
   extern __shared__ uint4 xs[];                 // [M][nq * 8] pieces
 
@@ -579,7 +618,7 @@ planes_stream_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__
         uint32_t pw[NP], cw[8];                   // codes, k-interleaved like xs
 #pragma unroll
         for (int p = 0; p < NP; ++p) pw[p] = lane_of(buf[u][p], e);
-        planes_to_codes<BITS, NP>(pw, cw);
+        D::weights(pw, cw);
 #pragma unroll
         for (int m = 0; m < MS; ++m) {
           if (m < M) {                            // warp-uniform
@@ -619,14 +658,8 @@ planes_stream_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__
   // 32 k at a time, in planes_to_codes' k-interleaved order, as two pieces
   for (int i = tid; i < M * nq * 4; i += S_THREADS) {
     const int m = i / (nq * 4), bk = i % (nq * 4), kq = bk >> 2, e = bk & 3;
-    uint32_t v[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}, t[8];
-    if (bk * 32 < K) {
-      const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)m * K + bk * 32);
-      const uint4 a = src[0], b = src[1];
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    }
-    interleave32<false>(v, t);
+    uint32_t t[8];
+    D::acts(x, xpstride, m, bk, K, t);
     uint4* row = xs + m * nq * 8 + kq * 8;
     row[(2 * e + kq) & 7] = make_uint4(t[0], t[1], t[2], t[3]);
     row[(2 * e + 1 + kq) & 7] = make_uint4(t[4], t[5], t[6], t[7]);
@@ -640,6 +673,43 @@ planes_stream_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__
     if (it + 2 < items) load_item(it + 2, ba);
     run_item(it + 1, bb);
   }
+}
+
+// K10: NP live planes of a BITS-plane stack x int8 rows
+template <int BITS, int NP, int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+planes_stream_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ w,
+                     const float* __restrict__ w_scale,
+                     const float* __restrict__ a_scale,
+                     const float* __restrict__ bias, void* __restrict__ out,
+                     int out_acc, int M, int N, int K, long long pstride, int vec) {
+  stream_gemm<PlaneSide<BITS, NP>, MS>(x, 0, w, pstride, w_scale, a_scale, bias, out,
+                                       out_acc, M, N, K, vec);
+}
+
+// K7: ±1 bits on both sides (bmxu) or trits on both sides (tmxu); the
+// weight stream is 1 or 2 bits a MAC column, so at decode the launch floor
+// and the unpack (3 or 5 integer ops per four codes, then M __dp4a) bound
+// them rather than the weight bytes
+template <int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+bmxu_stream_kernel(const uint32_t* __restrict__ x, long long xpstride,
+                   const uint32_t* __restrict__ w, long long pstride,
+                   const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                   const float* __restrict__ bias, void* __restrict__ out, int out_acc,
+                   int M, int N, int K, int vec) {
+  stream_gemm<MxuSide<1>, MS>(x, xpstride, w, pstride, w_scale, a_scale, bias, out,
+                              out_acc, M, N, K, vec);
+}
+template <int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+tmxu_stream_kernel(const uint32_t* __restrict__ x, long long xpstride,
+                   const uint32_t* __restrict__ w, long long pstride,
+                   const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                   const float* __restrict__ bias, void* __restrict__ out, int out_acc,
+                   int M, int N, int K, int vec) {
+  stream_gemm<MxuSide<2>, MS>(x, xpstride, w, pstride, w_scale, a_scale, bias, out,
+                              out_acc, M, N, K, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -971,16 +1041,24 @@ i8_stream_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Large M: one int8 tensor-core tile for K1, K9 and K10
+// Large M: one int8 tensor-core tile for K1, K7, K9, K10 and K11
 // ---------------------------------------------------------------------------
 
-// A 128 x 64 output tile, 8 warps of 32 x 32 (4 along M x 2 along N) on
-// mma.sync m16n8k32 s8 with ldmatrix fragments. A 3-stage cp.async ring
+// A BM x BN output tile of warps of 32 x 32 (16 x 32 at BM = 16) on
+// mma.sync m16n8k32 s8 with ldmatrix fragments: BM = 128 is 8 warps, 4
+// along M x 2 along N (BN = 64); BM = 16 is 4 warps along N (BN = 128),
+// for K11's few rows per expert. Measured on the card at the
+// deepseek-moe-16b decode tick (16 rows an expert): with 8 warps along N
+// (BN = 256) the 128-row tile took 2.7x and a 32-row one 1.09x the 16-row
+// tile's time (the padding rows they stage and multiply); the 16-row tile
+// with 4 warps took 0.96x and with 2 warps 1.03x of its 8-warp time: four
+// blocks share an SM, and while one waits at its barriers the others
+// convert and multiply. A 3-stage cp.async ring
 // brings each 128-k stage of the activation tile and of the raw weights;
 // each stage the block turns its raw weights into a padded int8 tile Bc (N
 // rows of K-contiguous codes, the layout ldmatrix and the s8 mma need),
-// once per block for all 128 rows, by the body's own weight stage:
-//   WK_I8      K-major (K, N) int8: cp.async in rows of 64 columns (every
+// once per block for all BM rows, by the body's own weight stage:
+//   WK_I8      K-major (K, N) int8: cp.async in rows of BN columns (every
 //              4 rows padded by 16 bytes, so the transpose's reads spread
 //              over the banks), then per thread a 4 x 8 byte block is
 //              transposed (2 x transpose4x4) into 8 column words of 4 k; a
@@ -991,25 +1069,54 @@ i8_stream_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 //   WK_PLANES4 / WK_PLANES8  a BITS-plane stack, np live planes: one plane
 //              word of each plane per thread -> 32 composed codes
 //              (compose_word)
-// Composing K10's codes bounds its tile (2*M*N*K MACs cost the tensor cores
-// little against ~11 ops per 4 codes, once per 128 rows); the K1 transpose
-// (~6 ops per 4 codes) and the K9 unpack (~2) cost less.
-constexpr int T_THREADS = 256;     // 8 warps: 4 along M x 2 along N, 32 x 32 each
-constexpr int T_BM = 128, T_BN = 64;
+//   WK_BITS / WK_TRITS  (N, K/32) bit words, one plane or (mask, sign): one
+//              word of each per thread -> 32 ±1 or trit codes (mxu_codes)
+// The int8 bodies cp.async their activations straight into the ring's
+// tile As. K7's activations are bits or trits too: the ring holds their raw
+// words (16 bytes a row and plane per stage) and, beside the weight stage,
+// each stage unpacks them into one padded As tile (mxu_codes; zero codes
+// past K, so the padded weight codes add nothing). K7 keeps both sides in
+// mxu_codes' k-interleaved order inside each 32 k: the same permutation of
+// k on both sides leaves the dot unchanged. Composing K10's codes bounds
+// its tile (2*M*N*K MACs cost the tensor cores little against ~11 ops per 4
+// codes, once per BM rows); K7's unpack (3 or 5 ops per 4 codes, both
+// sides), the K1 transpose (~6) and the K9 unpack (~2) cost less.
+//
+// Groups (K11): blockIdx.z is the member of a grouped launch, and each
+// block offsets x, w, w_scale (N), a_scale (M), bias (N) and out (M x N) by
+// it (group_member); an ungrouped launch is the one member z = 0.
+constexpr int T_THREADS = 256;     // 8 warps (4 at BM = 16)
+constexpr int T_BM = 128;          // rows of the tile every body runs above SMALL_M
 constexpr int T_KS = 128;          // k per stage
 constexpr int T_STAGES = 3;
 constexpr int T_LD = T_KS + 16;    // padded row, bytes: ldmatrix's 8 rows in distinct banks
-constexpr int T_KQ = 4 * T_BN + 16;   // WK_I8: bytes of 4 staged K-major rows + pad
+// rows up to which a grouped launch (K11) takes the 16-row tile
+constexpr int G_SMALL_M = 16;
 
-enum { WK_I8, WK_S4, WK_PLANES4, WK_PLANES8 };
+enum { WK_I8, WK_S4, WK_PLANES4, WK_PLANES8, WK_BITS, WK_TRITS };
 
-template <int WK> struct WTile {
+template <int WK, int BM> struct Tc {
+  static constexpr int MT = BM >= 32 ? 2 : 1;            // m16 tiles a warp
+  static constexpr int WARPS_M = BM / (16 * MT);         // 4 | 1
+  static constexpr int THREADS = BM == 16 ? 128 : T_THREADS;
+  static constexpr int WARPS_N = THREADS / 32 / WARPS_M;
+  static constexpr int BN = 32 * WARPS_N;                // 64 | 256
+  static_assert(WARPS_M * 16 * MT == BM && WARPS_M * WARPS_N * 32 == THREADS,
+                "warp grid");
+  // activation bit planes staged raw (0: int8 rows, cp.async'd into As)
+  static constexpr int XP = WK == WK_BITS ? 1 : WK == WK_TRITS ? 2 : 0;
+  // weight bit planes staged raw (planes: the stack's BITS)
+  static constexpr int WP = WK == WK_PLANES4 ? 4 : WK == WK_PLANES8 ? 8
+                            : WK == WK_TRITS ? 2 : 1;
   static constexpr int BITS = WK == WK_PLANES4 ? 4 : WK == WK_PLANES8 ? 8 : 0;
+  static constexpr int KQ = 4 * BN + 16;   // WK_I8: bytes of 4 staged K-major rows + pad
   // raw weight bytes staged per stage
-  static constexpr int RAW = WK == WK_I8 ? (T_KS / 4) * T_KQ
-                             : WK == WK_S4 ? T_BN * (T_KS / 2)
-                             : BITS * T_BN * 16;
-  static constexpr int SMEM = T_STAGES * (T_BM * T_LD + RAW) + T_BN * T_LD;
+  static constexpr int RAW = WK == WK_I8 ? (T_KS / 4) * KQ
+                             : WK == WK_S4 ? BN * (T_KS / 2)
+                             : WP * BN * (T_KS / 8);
+  // a ring stage of activations: raw bit words, or the int8 tile itself
+  static constexpr int ARAW = XP ? XP * BM * (T_KS / 8) : BM * T_LD;
+  static constexpr int SMEM = T_STAGES * (ARAW + RAW) + (XP ? BM * T_LD : 0) + BN * T_LD;
 };
 
 struct TcArgs {
@@ -1021,171 +1128,268 @@ struct TcArgs {
   void* out;
   int out_acc, M, N, K;
   int np;                // WK_PLANES*: live planes
-  long long pstride;     // WK_PLANES*: words from one plane to the next
+  long long pstride;     // WK_PLANES*, WK_TRITS: words from one weight plane to the next
+  long long xpstride;    // WK_TRITS: words from the activation mask plane to the sign plane
+  long long xg, wg;      // bytes from one group member's x / w to the next
   int xvec;              // activation rows 16-byte aligned (else 4-byte copies)
   int wvec;              // weight rows 16-byte aligned (else 4-byte copies)
 };
 
+// The arguments of one ungrouped GEMM, every other field zero.
+inline TcArgs tc_args(const void* x, const void* w, const float* w_scale,
+                      const float* a_scale, const float* bias, void* out, int out_acc,
+                      int M, int N, int K) {
+  TcArgs a{};
+  a.x = static_cast<const uint8_t*>(x);
+  a.w = w;
+  a.w_scale = w_scale;
+  a.a_scale = a_scale;
+  a.bias = bias;
+  a.out = out;
+  a.out_acc = out_acc;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.np = 1;
+  return a;
+}
+
+// this block's member of a grouped launch: every operand offset by it
+__device__ __forceinline__ TcArgs group_member(TcArgs a) {
+  const long long g = blockIdx.z;
+  a.x += g * a.xg;
+  a.w = static_cast<const uint8_t*>(a.w) + g * a.wg;
+  if (a.w_scale) a.w_scale += g * a.N;
+  if (a.a_scale) a.a_scale += g * a.M;
+  if (a.bias) a.bias += g * a.N;
+  a.out = static_cast<uint8_t*>(a.out) + g * a.M * a.N * (a.out_acc ? 4 : 2);
+  return a;
+}
+
 // cp.async the raw weights of the stage at k0 into `raw`
-template <int WK>
+template <int WK, int BM>
 __device__ __forceinline__ void load_weights(const TcArgs& a, uint8_t* raw, int k0,
                                              int n0, int tid) {
+  using T = Tc<WK, BM>;
+  constexpr int BN = T::BN;
   if constexpr (WK == WK_I8) {
     const auto* w = static_cast<const uint8_t*>(a.w);
     if (a.wvec) {              // 16 columns a copy
-      for (int i = tid; i < T_KS * (T_BN / 16); i += T_THREADS) {
-        const int r = i / (T_BN / 16), j = i % (T_BN / 16), k = k0 + r, n = n0 + 16 * j;
+      for (int i = tid; i < T_KS * (BN / 16); i += Tc<WK, BM>::THREADS) {
+        const int r = i / (BN / 16), j = i % (BN / 16), k = k0 + r, n = n0 + 16 * j;
         const bool ok = k < a.K && n < a.N;
-        cp_async16(raw + (r >> 2) * T_KQ + (r & 3) * T_BN + 16 * j,
+        cp_async16(raw + (r >> 2) * T::KQ + (r & 3) * BN + 16 * j,
                    ok ? w + (size_t)k * a.N + n : w, ok ? 16 : 0);
       }
     } else {                   // 4 columns a copy (N % 4 == 0)
-      for (int i = tid; i < T_KS * (T_BN / 4); i += T_THREADS) {
-        const int r = i / (T_BN / 4), j = i % (T_BN / 4), k = k0 + r, n = n0 + 4 * j;
+      for (int i = tid; i < T_KS * (BN / 4); i += Tc<WK, BM>::THREADS) {
+        const int r = i / (BN / 4), j = i % (BN / 4), k = k0 + r, n = n0 + 4 * j;
         const bool ok = k < a.K && n < a.N;
-        cp_async4(raw + (r >> 2) * T_KQ + (r & 3) * T_BN + 4 * j,
+        cp_async4(raw + (r >> 2) * T::KQ + (r & 3) * BN + 4 * j,
                   ok ? w + (size_t)k * a.N + n : w, ok ? 4 : 0);
       }
     }
   } else {
-    // row-major words: s4 (N, K/8) or each plane (N, K/32); W words per
+    // row-major words: s4 (N, K/8) or each bit plane (N, K/32); W words per
     // column per stage
     constexpr int KPW = WK == WK_S4 ? 8 : 32;
     constexpr int W = T_KS / KPW;                 // 16 | 4
     const auto* w = static_cast<const uint32_t*>(a.w);
     const int kw = a.K / KPW, kw0 = k0 / KPW;
-    const int planes = WK == WK_S4 ? 1 : a.np;
+    const int planes = T::BITS ? a.np : T::WP;
     uint32_t* dst0 = reinterpret_cast<uint32_t*>(raw);
     if (a.wvec) {
-      for (int i = tid; i < planes * T_BN * (W / 4); i += T_THREADS) {
-        const int p = i / (T_BN * (W / 4)), c = i / (W / 4) % T_BN, j = i % (W / 4);
+      for (int i = tid; i < planes * BN * (W / 4); i += Tc<WK, BM>::THREADS) {
+        const int p = i / (BN * (W / 4)), c = i / (W / 4) % BN, j = i % (W / 4);
         const int n = n0 + c, kq = kw0 + 4 * j;
         const bool ok = n < a.N && kq < kw;
-        cp_async16(dst0 + (p * T_BN + c) * W + 4 * j,
+        cp_async16(dst0 + (p * BN + c) * W + 4 * j,
                    ok ? w + p * a.pstride + (size_t)n * kw + kq : w, ok ? 16 : 0);
       }
     } else {
-      for (int i = tid; i < planes * T_BN * W; i += T_THREADS) {
-        const int p = i / (T_BN * W), c = i / W % T_BN, j = i % W;
+      for (int i = tid; i < planes * BN * W; i += Tc<WK, BM>::THREADS) {
+        const int p = i / (BN * W), c = i / W % BN, j = i % W;
         const int n = n0 + c, kq = kw0 + j;
         const bool ok = n < a.N && kq < kw;
-        cp_async4(dst0 + (p * T_BN + c) * W + j,
+        cp_async4(dst0 + (p * BN + c) * W + j,
                   ok ? w + p * a.pstride + (size_t)n * kw + kq : w, ok ? 4 : 0);
       }
     }
   }
 }
 
-// raw weights of one stage -> Bc [T_BN][T_LD] int8 codes, k-contiguous rows
-template <int WK>
+// raw weights of one stage -> Bc [BN][T_LD] int8 codes, k-contiguous rows
+template <int WK, int BM>
 __device__ __forceinline__ void weights_to_codes(const TcArgs& a, const uint8_t* raw,
                                                  uint8_t* Bc, int tid) {
+  using T = Tc<WK, BM>;
+  constexpr int BN = T::BN;
   if constexpr (WK == WK_I8) {
     // warp = 8-column block, lane = k-quad: 4 rows of 8 bytes, transposed
-    const int c8 = tid >> 5, kq = tid & 31;
-    uint2 r[4];
+    const int kq = tid & 31;
+    for (int c8 = tid >> 5; c8 < BN / 8; c8 += Tc<WK, BM>::THREADS / 32) {
+      uint2 r[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      r[i] = *reinterpret_cast<const uint2*>(raw + kq * T_KQ + i * T_BN + 8 * c8);
-    uint32_t lo[4], hi[4];
-    transpose4x4(r[0].x, r[1].x, r[2].x, r[3].x, lo);
-    transpose4x4(r[0].y, r[1].y, r[2].y, r[3].y, hi);
+      for (int i = 0; i < 4; ++i)
+        r[i] = *reinterpret_cast<const uint2*>(raw + kq * T::KQ + i * BN + 8 * c8);
+      uint32_t lo[4], hi[4];
+      transpose4x4(r[0].x, r[1].x, r[2].x, r[3].x, lo);
+      transpose4x4(r[0].y, r[1].y, r[2].y, r[3].y, hi);
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      *reinterpret_cast<uint32_t*>(Bc + (8 * c8 + l) * T_LD + 4 * kq) = lo[l];
-      *reinterpret_cast<uint32_t*>(Bc + (8 * c8 + 4 + l) * T_LD + 4 * kq) = hi[l];
+      for (int l = 0; l < 4; ++l) {
+        *reinterpret_cast<uint32_t*>(Bc + (8 * c8 + l) * T_LD + 4 * kq) = lo[l];
+        *reinterpret_cast<uint32_t*>(Bc + (8 * c8 + 4 + l) * T_LD + 4 * kq) = hi[l];
+      }
     }
-  } else if constexpr (WK == WK_S4) {
-    // thread = (column c, 32-k piece e): 4 s4 words -> 8 code words
-    const int c = tid >> 2, e = tid & 3;
-    const uint4 v = reinterpret_cast<const uint4*>(raw)[c * 4 + e];
-    uint32_t cw[8];
-    s4_to_codes(v.x, cw[0], cw[1]);
-    s4_to_codes(v.y, cw[2], cw[3]);
-    s4_to_codes(v.z, cw[4], cw[5]);
-    s4_to_codes(v.w, cw[6], cw[7]);
-    uint4* d = reinterpret_cast<uint4*>(Bc + c * T_LD + 32 * e);
-    d[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
-    d[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
   } else {
-    // thread = (column c, plane word e) -> 32 codes of column c
-    constexpr int BITS = WTile<WK>::BITS;
-    const uint32_t* Ws = reinterpret_cast<const uint32_t*>(raw);
-    const int c = tid >> 2, e = tid & 3;
-    uint32_t pw[BITS], cw[8];
+    // thread = (column c, 32-k piece e) -> 32 codes of column c
+    for (int i = tid; i < BN * 4; i += Tc<WK, BM>::THREADS) {
+      const int c = i >> 2, e = i & 3;
+      uint32_t cw[8];
+      if constexpr (WK == WK_S4) {
+        const uint4 v = reinterpret_cast<const uint4*>(raw)[c * 4 + e];
+        s4_to_codes(v.x, cw[0], cw[1]);
+        s4_to_codes(v.y, cw[2], cw[3]);
+        s4_to_codes(v.z, cw[4], cw[5]);
+        s4_to_codes(v.w, cw[6], cw[7]);
+      } else {
+        const uint32_t* Ws = reinterpret_cast<const uint32_t*>(raw);
+        uint32_t pw[T::WP];
 #pragma unroll
-    for (int p = 0; p < BITS; ++p) pw[p] = p < a.np ? Ws[(p * T_BN + c) * 4 + e] : 0u;
-    compose_word<BITS, BITS>(pw, cw);
-    uint4* d = reinterpret_cast<uint4*>(Bc + c * T_LD + 32 * e);
+        for (int p = 0; p < T::WP; ++p)
+          pw[p] = (T::BITS == 0 || p < a.np) ? Ws[(p * BN + c) * 4 + e] : 0u;
+        if constexpr (T::BITS) compose_word<T::BITS, T::BITS>(pw, cw);
+        else mxu_codes<T::WP>(pw, cw);
+      }
+      uint4* d = reinterpret_cast<uint4*>(Bc + c * T_LD + 32 * e);
+      d[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
+      d[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
+    }
+  }
+}
+
+// K7: cp.async the raw activation words of the stage at k0 (4 words a row
+// and plane) into `raw` [plane][row][4]
+template <int WK, int BM>
+__device__ __forceinline__ void load_act_words(const TcArgs& a, uint8_t* raw, int k0,
+                                               int m0, int tid) {
+  constexpr int XP = Tc<WK, BM>::XP;
+  const auto* x = reinterpret_cast<const uint32_t*>(a.x);
+  const int kw = a.K / 32, kw0 = k0 / 32;
+  uint32_t* d = reinterpret_cast<uint32_t*>(raw);
+  if (a.xvec) {              // kw % 4 == 0: a stage's 4 words are all in K
+    for (int i = tid; i < XP * BM; i += Tc<WK, BM>::THREADS) {
+      const int p = i / BM, r = i % BM, m = m0 + r;
+      const bool ok = m < a.M;
+      cp_async16(d + (p * BM + r) * 4,
+                 ok ? x + p * a.xpstride + (size_t)m * kw + kw0 : x, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < XP * BM * 4; i += Tc<WK, BM>::THREADS) {
+      const int p = i / (BM * 4), r = i / 4 % BM, j = i % 4, m = m0 + r;
+      const bool ok = m < a.M && kw0 + j < kw;
+      cp_async4(d + (p * BM + r) * 4 + j,
+                ok ? x + p * a.xpstride + (size_t)m * kw + kw0 + j : x, ok ? 4 : 0);
+    }
+  }
+}
+
+// K7: raw activation words of the stage at k0 -> As [BM][T_LD] codes, zero
+// past K
+template <int WK, int BM>
+__device__ __forceinline__ void acts_to_codes(const TcArgs& a, const uint8_t* raw,
+                                              uint8_t* As, int k0, int tid) {
+  constexpr int XP = Tc<WK, BM>::XP;
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(raw);
+  const int kw = a.K / 32, kw0 = k0 / 32;
+  for (int i = tid; i < BM * 4; i += Tc<WK, BM>::THREADS) {
+    const int r = i >> 2, e = i & 3;
+    uint32_t cw[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    if (kw0 + e < kw) {
+      uint32_t pw[XP];
+#pragma unroll
+      for (int p = 0; p < XP; ++p) pw[p] = xw[(p * BM + r) * 4 + e];
+      mxu_codes<XP>(pw, cw);
+    }
+    uint4* d = reinterpret_cast<uint4*>(As + r * T_LD + 32 * e);
     d[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
     d[1] = make_uint4(cw[4], cw[5], cw[6], cw[7]);
   }
 }
 
-template <int WK>
+template <int WK, int BM>
 __device__ __forceinline__ void mma_tile(const TcArgs& a) {
-  using T = WTile<WK>;
+  using T = Tc<WK, BM>;
+  constexpr int BN = T::BN, MT = T::MT;
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* As = smem;                                    // [S][BM][LD]
-  uint8_t* Raw = smem + T_STAGES * T_BM * T_LD;          // [S][RAW]
-  uint8_t* Bc = Raw + T_STAGES * T::RAW;                 // [BN][LD]
+  uint8_t* Ring = smem;                                  // [S][ARAW]
+  constexpr int S = T_STAGES;
+  uint8_t* Raw = smem + S * T::ARAW;                     // [S][RAW]
+  uint8_t* As = T::XP ? Raw + S * T::RAW : Ring;         // K7: one [BM][LD] tile
+  uint8_t* Bc = Raw + S * T::RAW + (T::XP ? BM * T_LD : 0);   // [BN][LD]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int m0 = blockIdx.y * T_BM, n0 = blockIdx.x * T_BN;
+  const int wm = warp % T::WARPS_M, wn = warp / T::WARPS_M;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int nst = (a.K + T_KS - 1) / T_KS;
 
   auto load_stage = [&](int st, int buf) {
     const int k0 = st * T_KS;
-    for (int i = tid; i < T_BM * (T_KS / 16); i += T_THREADS) {
-      const int r = i / (T_KS / 16), c = i % (T_KS / 16), m = m0 + r, k = k0 + 16 * c;
-      uint8_t* dst = As + (buf * T_BM + r) * T_LD + 16 * c;
-      const uint8_t* src = a.x + (size_t)m * a.K + k;
-      if (a.xvec) {
-        const bool ok = m < a.M && k < a.K;
-        cp_async16(dst, ok ? src : a.x, ok ? 16 : 0);
-      } else {                          // K % 4 == 0: whole words
+    if constexpr (T::XP) {
+      load_act_words<WK, BM>(a, Ring + buf * T::ARAW, k0, m0, tid);
+    } else {
+      for (int i = tid; i < BM * (T_KS / 16); i += Tc<WK, BM>::THREADS) {
+        const int r = i / (T_KS / 16), c = i % (T_KS / 16), m = m0 + r, k = k0 + 16 * c;
+        uint8_t* dst = Ring + buf * T::ARAW + r * T_LD + 16 * c;
+        const uint8_t* src = a.x + (size_t)m * a.K + k;
+        if (a.xvec) {
+          const bool ok = m < a.M && k < a.K;
+          cp_async16(dst, ok ? src : a.x, ok ? 16 : 0);
+        } else {                        // K % 4 == 0: whole words
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = m < a.M && k + 4 * e < a.K;
-          cp_async4(dst + 4 * e, ok ? src + 4 * e : a.x, ok ? 4 : 0);
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = m < a.M && k + 4 * e < a.K;
+            cp_async4(dst + 4 * e, ok ? src + 4 * e : a.x, ok ? 4 : 0);
+          }
         }
       }
     }
-    load_weights<WK>(a, Raw + buf * T::RAW, k0, n0, tid);
+    load_weights<WK, BM>(a, Raw + buf * T::RAW, k0, n0, tid);
   };
 
-  int acc[2][4][4];
+  int acc[MT][4][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
 
 #pragma unroll
-  for (int s = 0; s < T_STAGES - 1; ++s) {
+  for (int s = 0; s < S - 1; ++s) {
     if (s < nst) load_stage(s, s);
     cp_async_commit();
   }
   for (int st = 0; st < nst; ++st) {
-    const int buf = st % T_STAGES;
-    cp_async_wait<T_STAGES - 2>();        // this stage's copies have landed
+    const int buf = st % S;
+    cp_async_wait<S - 2>();               // this stage's copies have landed
     __syncthreads();                      // ... everyone's; the last stage is consumed
-    weights_to_codes<WK>(a, Raw + buf * T::RAW, Bc, tid);
+    if constexpr (T::XP)
+      acts_to_codes<WK, BM>(a, Ring + buf * T::ARAW, As, st * T_KS, tid);
+    weights_to_codes<WK, BM>(a, Raw + buf * T::RAW, Bc, tid);
     {
-      const int nx = st + T_STAGES - 1;   // into the buffer the last stage freed
-      if (nx < nst) load_stage(nx, nx % T_STAGES);
+      const int nx = st + S - 1;          // into the buffer the last stage freed
+      if (nx < nst) load_stage(nx, nx % S);
       cp_async_commit();
     }
-    __syncthreads();                      // the code tile is complete
-    const uint8_t* A = As + buf * T_BM * T_LD;
+    __syncthreads();                      // the code tiles are complete
+    const uint8_t* A = T::XP ? As : Ring + buf * T::ARAW;
 #pragma unroll
     for (int ks = 0; ks < T_KS / 32; ++ks) {
-      uint32_t af[2][4], bf[4][2];
+      uint32_t af[MT][4], bf[4][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4(af[mt], A + (wm * 32 + mt * 16 + (lane & 15)) * T_LD + 32 * ks +
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(af[mt], A + (wm * 16 * MT + mt * 16 + (lane & 15)) * T_LD + 32 * ks +
                             16 * (lane >> 4));
 #pragma unroll
       for (int nt = 0; nt < 4; nt += 2) {
@@ -1198,7 +1402,7 @@ __device__ __forceinline__ void mma_tile(const TcArgs& a) {
         bf[nt + 1][1] = r[3];
       }
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
     }
@@ -1207,12 +1411,12 @@ __device__ __forceinline__ void mma_tile(const TcArgs& a) {
   // accumulator fragment: c0, c1 at (row g, columns 2t, 2t+1), c2, c3 at row g + 8
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 32 + mt * 16 + g + 8 * (e >> 1);
+        const int m = m0 + wm * 16 * MT + mt * 16 + g + 8 * (e >> 1);
         const int n = n0 + wn * 32 + nt * 8 + 2 * t4 + (e & 1);
         if (m < a.M && n < a.N)
           store_out(a.out, a.out_acc, (size_t)m * a.N + n, acc[mt][nt][e], a.w_scale,
@@ -1220,25 +1424,38 @@ __device__ __forceinline__ void mma_tile(const TcArgs& a) {
       }
 }
 
-// one kernel name per body, so that its SASS can be checked on its own
-__global__ void __launch_bounds__(T_THREADS, 2) i8_mma_kernel(TcArgs a) {
-  mma_tile<WK_I8>(a);
+// one kernel name per body, so that its SASS can be checked on its own; K1
+// and K9 take a group index (K11) and a row tile
+template <int BM>
+__global__ void __launch_bounds__(Tc<WK_I8, BM>::THREADS, 512 / Tc<WK_I8, BM>::THREADS)
+i8_mma_kernel(TcArgs a) {
+  mma_tile<WK_I8, BM>(group_member(a));
 }
-__global__ void __launch_bounds__(T_THREADS, 2) s4_mma_kernel(TcArgs a) {
-  mma_tile<WK_S4>(a);
+template <int BM>
+__global__ void __launch_bounds__(Tc<WK_S4, BM>::THREADS, 512 / Tc<WK_S4, BM>::THREADS)
+s4_mma_kernel(TcArgs a) {
+  mma_tile<WK_S4, BM>(group_member(a));
 }
 template <int BITS>
 __global__ void __launch_bounds__(T_THREADS, 2) planes_mma_kernel(TcArgs a) {
-  mma_tile<BITS == 4 ? WK_PLANES4 : WK_PLANES8>(a);
+  mma_tile<BITS == 4 ? WK_PLANES4 : WK_PLANES8, T_BM>(a);
+}
+__global__ void __launch_bounds__(T_THREADS, 2) bmxu_mma_kernel(TcArgs a) {
+  mma_tile<WK_BITS, T_BM>(a);
+}
+__global__ void __launch_bounds__(T_THREADS, 2) tmxu_mma_kernel(TcArgs a) {
+  mma_tile<WK_TRITS, T_BM>(a);
 }
 
-template <int WK, typename F>
-int launch_mma(F* kernel, const TcArgs& a, cudaStream_t stream) {
+// `groups` GEMMs (gridDim.z) of the tile's kernel
+template <int WK, int BM, typename F>
+int launch_mma(F* kernel, const TcArgs& a, int groups, cudaStream_t stream) {
+  using T = Tc<WK, BM>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WTile<WK>::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.N + T_BN - 1) / T_BN, (a.M + T_BM - 1) / T_BM);
-  kernel<<<grid, T_THREADS, WTile<WK>::SMEM, stream>>>(a);
+  const dim3 grid((a.N + T::BN - 1) / T::BN, (a.M + BM - 1) / BM, groups);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1291,10 +1508,67 @@ int launch_planes(const void* x0, const void* w0, const float* w_scale,
     return launch_stream<BITS, SMALL_M>(np, x, w, w_scale, a_scale, bias, out,
                                         out_acc, M, N, K, pstride, vec, stream);
   }
-  const TcArgs a{x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, np, pstride,
-                 1, vec};
-  return launch_mma<BITS == 4 ? WK_PLANES4 : WK_PLANES8>(planes_mma_kernel<BITS>, a,
-                                                          stream);
+  TcArgs a = tc_args(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.np = np;
+  a.pstride = pstride;
+  a.xvec = 1;
+  a.wvec = vec;
+  return launch_mma<BITS == 4 ? WK_PLANES4 : WK_PLANES8, T_BM>(planes_mma_kernel<BITS>,
+                                                                a, 1, stream);
+}
+
+// words from a to b (two int32 operands, so a multiple of 4 bytes apart)
+inline long long words_between(const void* a, const void* b) {
+  return ((long long)reinterpret_cast<uintptr_t>(b) -
+          (long long)reinterpret_cast<uintptr_t>(a)) / 4;
+}
+
+template <int NP, int MS>
+int launch_mxu_stream(const uint32_t* x, long long xps, const uint32_t* w, long long wps,
+                      const float* w_scale, const float* a_scale, const float* bias,
+                      void* out, int out_acc, int M, int N, int K, int vec,
+                      cudaStream_t stream) {
+  auto* kernel = NP == 1 ? bmxu_stream_kernel<MS> : tmxu_stream_kernel<MS>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S_XMAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const int smem = M * ((K / 32 + 3) / 4) * 128;   // <= S_XMAX (launch_mxu)
+  static std::atomic<int> fit[S_XMAX / 128 + 1];
+  int blocks = 0;
+  if (int e = resident_blocks(kernel, smem, fit, &blocks)) return e;
+  const int tiles = (N + S_COLS - 1) / S_COLS;
+  kernel<<<min(tiles, blocks), S_THREADS, smem, stream>>>(
+      x, xps, w, wps, w_scale, a_scale, bias, out, out_acc, M, N, K, vec);
+  return (int)cudaGetLastError();
+}
+
+// K7: bits (NP = 1) or (mask, sign) trit planes (NP = 2) on both sides, x
+// (M, K/32) and w (N, K/32) words a plane; x1 / w1 the sign planes
+template <int NP>
+int launch_mxu(const void* x0, const void* x1, const void* w0, const void* w1,
+               const float* w_scale, const float* a_scale, const float* bias, void* out,
+               int out_acc, int M, int N, int K, cudaStream_t stream) {
+  const auto* x = static_cast<const uint32_t*>(x0);
+  const auto* w = static_cast<const uint32_t*>(w0);
+  if (K % 32 || (NP == 2 && (!x1 || !w1))) return (int)cudaErrorInvalidValue;
+  const long long xps = NP == 2 ? words_between(x0, x1) : 0;
+  const long long wps = NP == 2 ? words_between(w0, w1) : 0;
+  const int kw = K / 32;
+  const int wvec = kw % 4 == 0 && wps % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (M <= SMALL_M && (long long)M * ((kw + 3) / 4) * 128 <= S_XMAX) {
+    if (M <= 4)
+      return launch_mxu_stream<NP, 4>(x, xps, w, wps, w_scale, a_scale, bias, out,
+                                      out_acc, M, N, K, wvec, stream);
+    return launch_mxu_stream<NP, SMALL_M>(x, xps, w, wps, w_scale, a_scale, bias, out,
+                                          out_acc, M, N, K, wvec, stream);
+  }
+  TcArgs a = tc_args(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.pstride = wps;
+  a.xpstride = xps;
+  a.xvec = kw % 4 == 0 && xps % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.wvec = wvec;
+  if constexpr (NP == 1) return launch_mma<WK_BITS, T_BM>(bmxu_mma_kernel, a, 1, stream);
+  else return launch_mma<WK_TRITS, T_BM>(tmxu_mma_kernel, a, 1, stream);
 }
 
 template <int MS>
@@ -1332,9 +1606,10 @@ int launch_s4(const void* x0, const void* w0, const float* w_scale,
     return launch_s4_stream<SMALL_M>(x, w, w_scale, a_scale, bias, out, out_acc, M, N,
                                      K, wvec, stream);
   }
-  const int xvec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const TcArgs a{x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, 1, 0, xvec, wvec};
-  return launch_mma<WK_S4>(s4_mma_kernel, a, stream);
+  TcArgs a = tc_args(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.xvec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.wvec = wvec;
+  return launch_mma<WK_S4, T_BM>(s4_mma_kernel<T_BM>, a, 1, stream);
 }
 
 // K1's split of K across blocks: `splits` units per 32-column tile, each of
@@ -1401,10 +1676,36 @@ int launch_i8(const void* x0, const void* w0, const float* w_scale,
     return launch_i8_stream<SMALL_M>(x, w, w_scale, a_scale, bias, out, out_acc, M, N,
                                      K, ws, ws_ints, stream);
   }
-  const int xvec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int wvec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const TcArgs a{x, w, w_scale, a_scale, bias, out, out_acc, M, N, K, 1, 0, xvec, wvec};
-  return launch_mma<WK_I8>(i8_mma_kernel, a, stream);
+  TcArgs a = tc_args(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.xvec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.wvec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  return launch_mma<WK_I8, T_BM>(i8_mma_kernel<T_BM>, a, 1, stream);
+}
+
+// K11's int8 (K1) and s4 (K9) bodies: `groups` GEMMs of one shape in one
+// launch of the tensor-core tile, blockIdx.z the group; x and w advance by
+// xg / wg bytes from one member to the next. Up to G_SMALL_M rows (decode:
+// slots x capacity rows an expert, 16 for 4 slots) the 16-row tile, so
+// that no padding rows are staged and multiplied; above, the 128-row one.
+int launch_grouped_tc(int body, int groups, const void* x0, const void* w0,
+                      const float* w_scale, const float* a_scale, const float* bias,
+                      void* out, int out_acc, int M, int N, int K, long long xg,
+                      long long wg, cudaStream_t stream) {
+  const auto xa = reinterpret_cast<uintptr_t>(x0), wa = reinterpret_cast<uintptr_t>(w0);
+  if (body == BODY_I8 ? (K % 4 || N % 4) : K % 8) return (int)cudaErrorInvalidValue;
+  if (xa % 4 || wa % 4 || xg % 4 || wg % 4) return (int)cudaErrorMisalignedAddress;
+  TcArgs a = tc_args(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.xg = xg;
+  a.wg = wg;
+  a.xvec = K % 16 == 0 && xa % 16 == 0 && xg % 16 == 0;
+  a.wvec = (body == BODY_I8 ? N % 16 == 0 : K % 32 == 0) && wa % 16 == 0 && wg % 16 == 0;
+  if (body == BODY_I8)
+    return M <= G_SMALL_M
+               ? launch_mma<WK_I8, 16>(i8_mma_kernel<16>, a, groups, stream)
+               : launch_mma<WK_I8, T_BM>(i8_mma_kernel<T_BM>, a, groups, stream);
+  return M <= G_SMALL_M
+             ? launch_mma<WK_S4, 16>(s4_mma_kernel<16>, a, groups, stream)
+             : launch_mma<WK_S4, T_BM>(s4_mma_kernel<T_BM>, a, groups, stream);
 }
 
 }  // namespace
@@ -1435,13 +1736,11 @@ static int launch(int body, int groups, const void* x0, const void* x1,
         x_group_words, w_group_words);                                        \
     break;
   switch (body) {
-    LAUNCH(BODY_I8)
     LAUNCH(BODY_BINARY)
     LAUNCH(BODY_TERNARY)
     LAUNCH(BODY_BINARY_MXU)
     LAUNCH(BODY_TERNARY_MXU)
     LAUNCH(BODY_TERNARY_W_I8A)
-    LAUNCH(BODY_INT4_W_I8A)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1455,9 +1754,10 @@ static int launch(int body, int groups, const void* x0, const void* x1,
 // storage unit; the wrapper checks). w_planes / w_plane_stride: the live
 // planes P (1 <= P <= the body's BITS) of a plane-stacked weight and the
 // words between two planes; ignored by the other bodies. The int8 (K1),
-// s4 (K9) and plane (K10) bodies run their streaming kernel up to SMALL_M
-// rows and their tensor-core kernel above; the plane bodies' activation
-// rows must be 16-byte aligned, K1's and K9's operands 4-byte aligned.
+// mxu (K7), s4 (K9) and plane (K10) bodies run their streaming kernel up
+// to SMALL_M rows and their tensor-core kernel above; the plane bodies'
+// activation rows must be 16-byte aligned, K1's and K9's operands 4-byte
+// aligned.
 // ws / ws_ints: a zeroed int32 scratch of ws_ints ints for K1's split of K
 // across blocks; the kernel leaves it zeroed. Launches on one stream may
 // share it, launches on two streams may not.
@@ -1480,6 +1780,12 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
                        ws_ints, stream);
     case BODY_INT4_W_I8A:
       return launch_s4(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K, stream);
+    case BODY_BINARY_MXU:
+      return launch_mxu<1>(x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                           stream);
+    case BODY_TERNARY_MXU:
+      return launch_mxu<2>(x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                           stream);
     default:
       return launch(body, 1, x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc,
                     M, N, K, 0, 0, stream);
@@ -1490,7 +1796,8 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
 // contiguous with a leading group axis: x0/x1 and w0/w1 advance by
 // x_group_words / w_group_words 32-bit words from one group to the next,
 // w_scale and bias by N floats, a_scale by M floats, out by M * N elements.
-// The plane bodies are refused.
+// The int8 and s4 bodies run the tensor-core tile, the others gemm_kernel;
+// the plane bodies are refused.
 extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
                                   const void* x1, const void* w0,
                                   const void* w1, const float* w_scale,
@@ -1503,6 +1810,9 @@ extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
     return (int)cudaErrorInvalidValue;
   if (body == BODY_PLANES_W4 || body == BODY_PLANES_W8)
     return (int)cudaErrorInvalidValue;
+  if (body == BODY_I8 || body == BODY_INT4_W_I8A)
+    return launch_grouped_tc(body, groups, x0, w0, w_scale, a_scale, bias, out, out_acc,
+                             M, N, K, 4 * x_group_words, 4 * w_group_words, stream);
   return launch(body, groups, x0, x1, w0, w1, w_scale, a_scale, bias, out,
                 out_acc, M, N, K, x_group_words, w_group_words, stream);
 }

@@ -7,8 +7,9 @@ takes, and its plain PyTorch version (`plain`), which states the same
 algebra with torch ops. `gemm` launches the kernel for CUDA tensors and runs
 the plain version for CPU tensors; it never falls back from one to the
 other. `gemm_grouped` (K11) runs G GEMMs of one shape, every operand
-carrying a leading group axis, as ONE launch of the same template
-(`repro_gemm_grouped`, counted by `GEMM_GROUPED`).
+carrying a leading group axis, as ONE launch (`repro_gemm_grouped`, counted
+by `GEMM_GROUPED`): the int8 and s4 bodies on the tensor-core tile, the
+others on the template.
 """
 from __future__ import annotations
 

@@ -9,7 +9,8 @@ Trits are two bit-planes (mask, sign) per `core.pack`.
                      and the dot is active - 2*disagree. The plain version
                      is `core.pack.ternary_dot_words`.
   TERNARY_MXU      — both sides unpacked to {-1,0,+1} int8 and dotted
-                     (BODY_TERNARY_MXU: unpack in shared memory, __dp4a);
+                     (BODY_TERNARY_MXU: `tmxu_stream_kernel` up to 8 rows,
+                     `tmxu_mma_kernel` on the int8 tensor cores above);
                      integer-exact, so equal to TERNARY_POPCOUNT.
   TERNARY_W_I8A    — mixed w-ternary x a-int8: (M, K) int8 activation codes
                      against trit weight planes unpacked to int8

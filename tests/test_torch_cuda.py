@@ -7,8 +7,8 @@ imports no JAX, so it runs on a machine that has only torch:
 
 Bars: the GEMM kernel's int32 accumulator and bf16 requant output are
 bit-equal to the plain version for every MAC body (ragged M and N, with and
-without bias; K1 and K9 in both of their kernels, K1 with K split across
-blocks), and the mxu bodies' accumulators equal the popcount bodies';
+without bias; K1, K7 and K9 in both of their kernels, K1 with K split
+across blocks), and the mxu bodies' accumulators equal the popcount bodies';
 the plane bodies (K10) are bit-equal to their plain version at every
 truncation depth P in 1..bits, in both regimes (up to 8 rows and above),
 and at P = bits to the direct int8 and int4 bodies on the composed codes;
@@ -26,7 +26,8 @@ gives the direct cells' tokens, speculative decoding gives sequential
 decoding's tokens, and a verify row's logits are bit-equal to the
 sequential decode step's at the same position. The grouped GEMM (K11) is
 bit-equal to its plain version and to G separate ungrouped launches for
-every body it serves, in one launch; a reduced MoE arch served through it
+every body it serves, in one launch (the int8 and s4 bodies on both of
+their row tiles, at G up to 64); a reduced MoE arch served through it
 gives a 4-slot server the tokens of a 1-slot server, and launches it once
 per expert projection per forward call.
 """
@@ -73,18 +74,22 @@ def _operands(body, m, n, k, gen):
 
 
 _GEMM_SHAPES = [(1, 128, 96), (5, 256, 100), (33, 3072, 200), (4, 8192, 3072)]
-#: K1 and K9 on each side of their switch from the streaming kernel (up to 8
-#: rows) to the tensor-core kernel: K ragged against the 128-k stage and the
+#: K1, K7 and K9 on each side of their switch from the streaming kernel (up
+#: to 8 rows) to the tensor-core kernel: K ragged against the 128-k stage and the
 #: 16-byte loads (int8 K = 132, 3076; s4 K = 136), N ragged (a multiple of 4
 #: for K1's K-major weights) or 16-byte aligned (3072). K1 at K = 3076, N =
 #: 228 splits K across blocks unevenly at 4 and 8 rows (769 k-quads: the
 #: last split holds one).
-_K1_K9_SHAPES = {
+_TWO_KERNEL_SHAPES = {
     i8gemm.I8_DOT: [(132, 100), (3076, 228), (1024, 3072)],
     i4gemm.INT4_W_I8A: [(136, 100), (1024, 3072)],
+    # K7 likewise: K = 160 and 4128 are not multiples of the 128-k stage
+    # (4-byte loads on both sides), 1024 is; N ragged or 3072
+    bgemm.BINARY_MXU: [(160, 100), (4128, 200), (1024, 3072)],
+    tgemm.TERNARY_MXU: [(160, 100), (4128, 200), (1024, 3072)],
 }
 _GEMM_CASES = ([(b, *s) for b in BODIES for s in _GEMM_SHAPES]
-               + [(b, m, k, n) for b, kn in _K1_K9_SHAPES.items()
+               + [(b, m, k, n) for b, kn in _TWO_KERNEL_SHAPES.items()
                   for m in (1, 4, 8, 9, 16, 33, 256) for k, n in kn])
 
 
@@ -106,7 +111,8 @@ def test_gemm_kernel_bit_equal_to_plain(cuda, body, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4, 3072, 200), (32, 8192, 96)])
+@pytest.mark.parametrize("m,k,n", [(4, 3072, 200), (32, 8192, 96), (8, 160, 100),
+                                   (9, 4128, 200), (256, 1024, 300)])
 @pytest.mark.parametrize("mxu,popcount", [
     (bgemm.BINARY_MXU, bgemm.BINARY_POPCOUNT),
     (tgemm.TERNARY_MXU, tgemm.TERNARY_POPCOUNT)], ids=["binary", "ternary"])
@@ -229,6 +235,12 @@ def test_paged_kernel_matches_plain(cuda, dtype, int8, tol, hq, hk, dh):
 @pytest.mark.parametrize("body", [b for b in BODIES if not b.w_stack],
                          ids=lambda b: b.name)
 def test_grouped_kernel_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k, n):
+    _check_grouped(cuda, body, g, m, k, n)
+
+
+def _check_grouped(cuda, body, g, m, k, n):
+    """One grouped launch == its plain version == g ungrouped launches
+    (int32 accumulator, and bf16 output with bias on and off)."""
     gen = torch.Generator().manual_seed(g * 1000 + m + n)
     parts = [_operands(body, m, n, k, gen) for _ in range(g)]
     x = tuple(torch.stack([p[0][j] for p in parts]) for j in range(body.n_x))
@@ -255,6 +267,23 @@ def test_grouped_kernel_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k, n)
                                ws[i].to(cuda), as_[i].to(cuda),
                                None if bias is None else bias[i].to(cuda), k=k)
             assert torch.equal(got[i].view(torch.int16), one.view(torch.int16)), i
+
+
+#: K11's int8 and s4 bodies on both of their row tiles (16 rows up to 16,
+#: 128 above): G = 1, 3 and 64 (deepseek-moe-16b's experts), ragged M on
+#: each side of the switch, K ragged against the 16-byte loads (136, 264)
+#: or not, N ragged (a multiple of 4 for the K-major int8 weights)
+_GROUPED_TC = [(1, 4, 256, 100), (1, 130, 1024, 352), (3, 1, 136, 100),
+               (3, 17, 264, 228), (3, 33, 512, 96), (64, 16, 512, 100),
+               (64, 4, 256, 96), (64, 32, 136, 260)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k,n", _GROUPED_TC)
+@pytest.mark.parametrize("body", [i8gemm.I8_DOT, i4gemm.INT4_W_I8A],
+                         ids=lambda b: b.name)
+def test_grouped_tc_bodies_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k, n):
+    _check_grouped(cuda, body, g, m, k, n)
 
 
 def _reduced_moe_serve(cuda, arch, policy, slots, lens=(3, 9, 14, 5, 30, 1)):
