@@ -10,16 +10,18 @@ Phases:
                (one nvcc per source, in parallel) for sm_90a; prints each
                kernel's registers and spills, and fails unless the SASS
                (cuobjdump) of K6's bf16 kernel holds HMMA/HGMMA and that of
-               the large-M kernels of K1, K7 (binary and ternary), K9 and
-               K10 IMMA/IGMMA instructions
+               the large-M kernels of K1, K7 (binary and ternary), K8, K9
+               and K10 IMMA/IGMMA instructions, or if K5's llama3.2-3b or
+               deepseek-moe-16b instantiation spills
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, at the serve path's full llama3.2-3b shapes: the packed
                GEMM under each of its seven MAC bodies at M = 4, 32 and 256,
-               the mxu bodies (K7) and their popcount twins also at M = 8
-               and 9, each side of K7's switch from its streaming kernel to
-               its tensor-core kernel (int32 accumulator and bf16 requant
-               output bit-equal, bias on and off; the mxu bodies'
-               accumulators equal the popcount bodies'; K9 at qkv, out, up
+               the mxu bodies (K7), their popcount twins and wt-i8a (K8)
+               also at M = 8 and 9, each side of K7's and K8's switch from
+               the streaming kernel to the tensor-core kernel (int32
+               accumulator and bf16 requant output bit-equal, bias on and
+               off; the mxu bodies' accumulators equal the popcount
+               bodies'; K9 at qkv, out, up
                and down, the shapes w4a8 runs it at; K1's and K9's decode
                ticks also timed back to back),
                the plane-composed bodies (K10, int4 and int8
@@ -27,7 +29,9 @@ Phases:
                13, 16, 32, 40 and 256 (both regimes; bit-equal, and at P =
                bits equal to the direct int8 / int4 bodies' accumulators on
                the composed codes), paged decode (bf16 and int8 pools, within
-               2e-2), flash attention (T = 256 and 2048, bf16, within 3e-2),
+               2e-2; the 4-slot tick, 4 slots over a 2048-token cache and
+               16 verify rows, each beside SDPA), flash attention (T = 256
+               and 2048, bf16, within 3e-2),
                and the grouped GEMM (K11) at the full-width expert shapes of
                deepseek-moe-16b (G = 64) and phi3.5-moe-42b-a6.6b (G = 16),
                M = 4, 16 and 128 rows per expert (1- and 4-slot decode, a
@@ -132,6 +136,12 @@ LONG_PROMPT = 2048           # K6 is also checked at a 2048-token prompt
 #: a ragged 40
 PLANE_ROWS = (SLOTS, 7, 9, 13, 16, PREFILL_BUCKET, 40, LONG_BUCKET)
 PAGED_POS = (1, 77, 160, 255)  # 4 slots, positions spread over 1..255
+#: K5's other checked shapes: 4 slots over a 2048-token cache, and 16
+#: verify rows (4 slots x 4 consecutive positions, each row reading its
+#: slot's pages)
+LONG_POS = (2047, 1000, 511, 1536)
+VERIFY_POS = tuple(max(p - 3, 0) + i for p in PAGED_POS for i in range(4))
+VERIFY_SLOTS = tuple(r // 4 for r in range(16))
 
 _GEMM = "src/repro/kernels/harness.py:240 (gemm, {} body {})"
 MOE_ARCHS = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b")
@@ -167,6 +177,9 @@ ATTENTION_KERNELS = ("paged_flash_decode", "flash_attention")
 #: mxu body -> the popcount body whose accumulator it must equal
 MXU_TWIN = {"bgemm_mxu": "bgemm_popcount", "tgemm_mxu": "tgemm_popcount"}
 TWINNED = set(MXU_TWIN) | set(MXU_TWIN.values())
+#: bodies checked and timed at MXU_ROWS: K7, its popcount twins, and K8 on
+#: each side of its switch from the streaming to the tensor-core kernel
+SWITCH_CHECKED = TWINNED | {"tgemm_wt_i8a"}
 #: layers of one decode tick that run each mixed body (het's assignment)
 TICK_LAYERS = {"tgemm_wt_i8a": ("out", "down"), "i4gemm_w4a8": ("up",)}
 #: shapes checked for a body beyond its tick's: w4a8 runs K9 on every body
@@ -227,13 +240,17 @@ TENSOR_CORE_KERNELS = [("flash_attn", "flash_mma_kernel", ("HMMA", "HGMMA")),   
                        ("gemm", "s4_mma_kernel", ("IMMA", "IGMMA")),            # K9, K11
                        ("gemm", "planes_mma_kernel", ("IMMA", "IGMMA")),        # K10
                        ("gemm", "bmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7
-                       ("gemm", "tmxu_mma_kernel", ("IMMA", "IGMMA"))]          # K7
+                       ("gemm", "tmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7
+                       ("gemm", "wt_mma_kernel", ("IMMA", "IGMMA"))]            # K8
+#: K5 instantiations that must not spill: (G, dh) of llama3.2-3b and
+#: deepseek-moe-16b, as in `paged_decode_kernel<QT, KVT, G, dh>`
+NO_SPILL = {"paged_decode_kernel": ("Li3ELi128E", "Li1ELi128E")}
 
 
-def ptxas_report(name: str, text: str) -> None:
+def ptxas_report(name: str, text: str) -> dict:
     """One line per compiled kernel: its registers, shared memory and
-    spills, from the -Xptxas -v log."""
-    fn, parts = None, {}
+    spills, from the -Xptxas -v log; returns kernel -> its spill line."""
+    fn, parts, spills = None, {}, {}
     for line in text.splitlines():
         hit = re.search(r"Compiling entry function '(\S+)'", line)
         if hit:
@@ -244,7 +261,22 @@ def ptxas_report(name: str, text: str) -> None:
             parts["spill"] = line.strip()
         if fn and len(parts) == 2:
             log(f"[build] {name} {fn[:90]}: {parts['used']}; {parts['spill']}")
+            spills[fn] = parts["spill"]
             fn = None
+    return spills
+
+
+def check_spills(spills: dict) -> None:
+    """Fails if a NO_SPILL instantiation spills (or was not compiled)."""
+    for kernel, shapes in NO_SPILL.items():
+        for shape in shapes:
+            hits = {f: s for f, s in spills.items() if kernel in f and shape in f}
+            if not hits:
+                raise RuntimeError(f"no {kernel} instantiation {shape} in the build log")
+            for f, line in hits.items():
+                if re.search(r"[1-9]\d* bytes spill", line):
+                    raise RuntimeError(f"{f}: spills ({line})")
+            log(f"[build] {kernel} {shape}: {len(hits)} instantiations, no spill")
 
 
 def sass_tensor_cores() -> None:
@@ -282,8 +314,10 @@ def phase_build() -> None:
     logs = build.build_all()
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
         f"{len(logs)} libraries in {time.perf_counter() - t0:.1f}s")
+    spills = {}
     for name, text in logs.items():
-        ptxas_report(name, text)
+        spills.update(ptxas_report(name, text))
+    check_spills(spills)
     sass_tensor_cores()
     tile = harness.kernel_tile()
     if tile != harness.Tile():
@@ -349,7 +383,7 @@ def unpacked_i8(body, x_ops, w_ops, k):
 def check_gemm(body, cfg, flush, gen, accs) -> dict:
     """Kernel vs plain at every serve GEMM shape the body runs (its tick's,
     TICK_LAYERS, and CHECK_LAYERS), at M = SLOTS (decode) and at both
-    prefill buckets (MXU_ROWS for K7 and its twins); returns the
+    prefill buckets (MXU_ROWS for K7, its twins and K8); returns the
     per-decode-tick record over its tick's
     layers. `accs` collects each shape's int32 accumulator, so that an mxu
     body can be held against its popcount twin on the same operands (same
@@ -358,7 +392,7 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
     tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0, "lib": 0.0}
     layers = TICK_LAYERS.get(body.name)
     checked = CHECK_LAYERS.get(body.name, layers)
-    for m in MXU_ROWS if body.name in TWINNED else GEMM_ROWS:
+    for m in MXU_ROWS if body.name in SWITCH_CHECKED else GEMM_ROWS:
         for si, (name, n, k, per_tick) in enumerate(gemm_shapes(cfg)):
             if checked is not None and name not in checked:
                 continue
@@ -677,20 +711,26 @@ def tick_in_sequence(body, cfg, flush, gen, depths=(None,)) -> dict:
     return out
 
 
-def check_paged(cfg, flush, gen) -> dict:
-    """Kernel vs plain for the 4-slot decode at PAGED_POS, bf16 and int8
-    pools; returns the per-decode-tick record of the bf16 pool (the serve
-    path's)."""
+def check_paged(cfg, flush, gen, positions=PAGED_POS, max_pages=CACHE_LEN // PAGE_SIZE,
+                slots=None) -> dict:
+    """Kernel vs plain for one layer's decode attention of len(positions)
+    rows at `positions`, row r reading table row slots[r] (default: its
+    own), bf16 and int8 pools, each slot's pages as many as its longest row
+    needs; kernel, plain and SDPA timed. Returns the record of the bf16 pool
+    (the serve path's) for the cfg's layers: at PAGED_POS the 4-slot decode
+    tick's 28 launches."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attn
-    b, hq, hk, dh = SLOTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    max_pages = CACHE_LEN // PAGE_SIZE
-    num_pages = 1 + b * max_pages
-    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device="cuda")
-    pages = torch.zeros((b, max_pages), dtype=torch.int32, device="cuda")
-    for r, p in enumerate(PAGED_POS):
-        live = p // PAGE_SIZE + 1
-        pages[r, :live] = 1 + r * max_pages + torch.arange(live, device="cuda")
+    slots = tuple(range(len(positions))) if slots is None else slots
+    b, hq, hk, dh = len(positions), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_slots = max(slots) + 1
+    num_pages = 1 + n_slots * max_pages
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    table = torch.zeros((n_slots, max_pages), dtype=torch.int32, device="cuda")
+    for r in range(n_slots):
+        live = max(p for p, sl in zip(positions, slots) if sl == r) // PAGE_SIZE + 1
+        table[r, :live] = 1 + r * max_pages + torch.arange(live, device="cuda")
+    pages = table[list(slots)].contiguous()
     q = torch.randn((b, hq, dh), device="cuda", generator=gen).to(torch.bfloat16)
     rec = None
     tol = 2e-2
@@ -712,16 +752,18 @@ def check_paged(cfg, flush, gen) -> dict:
         # bf16; the kernel keeps f32 to the end: 1 bf16 step at |o| < 4 is
         # 0.0156, so allow 2e-2 + 2e-2 * |want|
         if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-            raise AssertionError(f"paged decode ({kv} pool): max abs err {err} "
-                                 f"outside rtol=atol={tol}")
+            raise AssertionError(f"paged decode ({kv} pool, pos {list(positions)}): "
+                                 f"max abs err {err} outside rtol=atol={tol}")
         ms = time_ms(lambda: paged_attn.paged_flash_decode(q, k_pool, v_pool,
                                                             pages, pos), 50, flush)
         pms = time_ms(lambda: paged_attn.paged_decode_plain(q, k_pool, v_pool,
                                                              pages, pos), 5)
-        tokens = sum(p + 1 for p in PAGED_POS)
+        # each slot's K/V read once (verify rows of a slot share theirs)
+        tokens = sum(max(p for p, sl in zip(positions, slots) if sl == r) + 1
+                     for r in range(n_slots))
         nbytes = (2 * tokens * hk * dh * k_pool.element_size()
                   + 2 * 2 * b * hq * dh + 4 * (b * max_pages + b))
-        ops = 4.0 * tokens * hq * dh
+        ops = 4.0 * sum(p + 1 for p in positions) * hq * dh
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS_PER_S
         # yardstick: SDPA on the already-gathered KV (gather not timed)
         s = max_pages * PAGE_SIZE
@@ -738,10 +780,14 @@ def check_paged(cfg, flush, gen) -> dict:
         lib = time_ms(lambda: F.scaled_dot_product_attention(qs, kd, vd,
                                                              attn_mask=mask),
                       50, flush)
+        del kd, vd
+        where = (f"pos={list(positions)}" if b <= 4 else
+                 f"{b} verify rows of {n_slots} slots, pos {min(positions)}..{max(positions)}")
         log(f"[kernels] paged_flash_decode {kv} pool B={b} Hq={hq} Hk={hk} dh={dh} "
-            f"pos={list(PAGED_POS)}: max abs err {err:.3e} (rtol=atol={tol})  kernel "
-            f"{ms:.4f} ms  plain {pms:.3f} ms  bound {max(t_bytes, t_ops) * 1e3:.5f} ms "
-            f"(bytes)  sdpa on gathered KV {lib:.4f} ms")
+            f"max_pages={max_pages} {where}: max abs err {err:.3e} (rtol=atol={tol})  "
+            f"kernel {ms:.4f} ms  plain {pms:.3f} ms  bound {max(t_bytes, t_ops) * 1e3:.5f} "
+            f"ms ({'bytes' if t_bytes >= t_ops else 'operations'})  sdpa on gathered KV "
+            f"{lib:.4f} ms  kernel / sdpa {ms / lib:.2f}")
         if kv == "bf16":
             n = cfg.n_layers
             rec = {"name": "paged_flash_decode", "max_abs_err": err, "ms": n * ms,
@@ -812,6 +858,8 @@ def phase_kernels(cfg, recs: list) -> None:
         recs.append(check_planes(body, cfg, flush, gen) if body.w_stack
                     else check_gemm(body, cfg, flush, gen, accs))
     recs.append(check_paged(cfg, flush, gen))
+    check_paged(cfg, flush, gen, LONG_POS, LONG_PROMPT // PAGE_SIZE)
+    check_paged(cfg, flush, gen, VERIFY_POS, slots=VERIFY_SLOTS)
     recs.append(check_flash(cfg, flush, gen, LONG_BUCKET))
     check_flash(cfg, flush, gen, LONG_PROMPT)
     recs.append(check_grouped(flush, gen))

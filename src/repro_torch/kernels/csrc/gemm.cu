@@ -50,20 +50,22 @@
 // is the same number and equals the popcount bodies' dot bit for bit.
 //
 // Which kernel runs each body:
-// - K1 (BODY_I8), K7 (BODY_BINARY_MXU, BODY_TERNARY_MXU), K9
-//   (BODY_INT4_W_I8A) and K10 (the plane bodies), called ungrouped, run two
-//   kernels each, chosen by M. Up to SMALL_M = 8 rows (decode and draft
-//   rows of 4 slots) a weight-streaming kernel: persistent blocks stage the
-//   activations once (as int8 codes: K7 unpacks its bits or trits there)
-//   and stream the weights through registers with 16-byte loads, the next
-//   item's in flight while this one is multiplied, bound by the weight
-//   bytes and the launch floor (each weight byte feeds at most 8 rows).
+// - K1 (BODY_I8), K7 (BODY_BINARY_MXU, BODY_TERNARY_MXU), K8
+//   (BODY_TERNARY_W_I8A), K9 (BODY_INT4_W_I8A) and K10 (the plane bodies),
+//   called ungrouped, run two kernels each, chosen by M. Up to SMALL_M = 8
+//   rows (decode and draft rows of 4 slots) a weight-streaming kernel:
+//   persistent blocks stage the activations once (as int8 codes: K7
+//   unpacks its bits or trits there) and stream the weights through
+//   registers with 16-byte loads, the next item's in flight while this one
+//   is multiplied, bound by the weight bytes and the launch floor (each
+//   weight byte feeds at most 8 rows).
 //   Above 8 rows (verify rows, the prefill buckets) one int8 tensor-core
 //   tile (mma.sync m16n8k32 s8, 128 x 64, a 3-stage cp.async ring) with
 //   each body's own weight stage into a padded int8 code tile, and for K7
 //   an activation stage too:
 //     K1   i8_stream_kernel (K split across blocks, int32 atomics)  i8_mma_kernel
 //     K7   bmxu_stream_kernel / tmxu_stream_kernel                   bmxu_mma_kernel / tmxu_mma_kernel
+//     K8   wt_stream_kernel                                          wt_mma_kernel
 //     K9   s4_stream_kernel                                          s4_mma_kernel
 //     K10  planes_stream_kernel                                      planes_mma_kernel
 //   Each kernel's design is written above it.
@@ -75,10 +77,10 @@
 //   G_SMALL_M = 16 rows and the 128-row one above. The MoE expert
 //   projections are G = E weight stacks at decode M = slots x capacity (16
 //   for 4 slots): the weight bytes of all experts bound them.
-// - gemm_kernel runs the popcount bodies (K3, K4) and wt-i8a (K8), grouped
-//   or not, and the grouped mxu bodies; no MoE configuration the port
-//   serves sends a binary, ternary, mxu or wt-i8a body to K11 (w-ternary
-//   experts are weight-only). The TPU grid's sequential K axis becomes a
+// - gemm_kernel runs the popcount bodies (K3, K4), grouped or not, and the
+//   grouped mxu and wt-i8a bodies; no MoE configuration the port serves
+//   sends a binary, ternary, mxu or wt-i8a body to K11 (w-ternary experts
+//   are weight-only). The TPU grid's sequential K axis becomes a
 //   loop inside the block: a block owns one BM x BN output tile, walks K
 //   in KT-word stages through shared memory (KT packed words = 1024 k for
 //   the popcount bodies, KT four-code words = 128 k for the __dp4a
@@ -552,6 +554,16 @@ template <int NP> struct MxuSide {
   }
 };
 
+// K8: MxuSide's (mask, sign) trit weights x PlaneSide's int8 rows
+struct WtSide {
+  static constexpr int PLANES = 2;
+  __device__ static void weights(const uint32_t* pw, uint32_t* cw) { mxu_codes<2>(pw, cw); }
+  __device__ static void acts(const void* x, long long xpstride, int m, int bk, int K,
+                              uint32_t* t) {
+    PlaneSide<8, 1>::acts(x, xpstride, m, bk, K, t);
+  }
+};
+
 // M <= MS rows (MS = 4 or 8) against D::PLANES weight planes.
 // Persistent blocks walk 16-column tiles blockIdx.x, + gridDim.x, ...; lane
 // 4 kl + c of a warp (column c of its 4, k-lane kl) takes the k-quads kl,
@@ -710,6 +722,20 @@ tmxu_stream_kernel(const uint32_t* __restrict__ x, long long xpstride,
                    int M, int N, int K, int vec) {
   stream_gemm<MxuSide<2>, MS>(x, xpstride, w, pstride, w_scale, a_scale, bias, out,
                               out_acc, M, N, K, vec);
+}
+
+// K8: trit weights x int8 rows (M, K), 16-byte aligned (xpstride unused);
+// K7's ternary weight stream against K10's staged activations, so only
+// the weights are unpacked (5 integer ops per four codes)
+template <int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+wt_stream_kernel(const uint32_t* __restrict__ x, long long xpstride,
+                 const uint32_t* __restrict__ w, long long pstride,
+                 const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                 const float* __restrict__ bias, void* __restrict__ out, int out_acc,
+                 int M, int N, int K, int vec) {
+  stream_gemm<WtSide, MS>(x, xpstride, w, pstride, w_scale, a_scale, bias, out, out_acc,
+                          M, N, K, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -1071,6 +1097,9 @@ i8_stream_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 //              (compose_word)
 //   WK_BITS / WK_TRITS  (N, K/32) bit words, one plane or (mask, sign): one
 //              word of each per thread -> 32 ±1 or trit codes (mxu_codes)
+//   WK_WT      K8: (mask, sign) trit words against int8 activations: as
+//              WK_TRITS, then put back in k order (interleave32), since its
+//              activations are cp.async'd into As in k order
 // The int8 bodies cp.async their activations straight into the ring's
 // tile As. K7's activations are bits or trits too: the ring holds their raw
 // words (16 bytes a row and plane per stage) and, beside the weight stage,
@@ -1093,7 +1122,7 @@ constexpr int T_LD = T_KS + 16;    // padded row, bytes: ldmatrix's 8 rows in di
 // rows up to which a grouped launch (K11) takes the 16-row tile
 constexpr int G_SMALL_M = 16;
 
-enum { WK_I8, WK_S4, WK_PLANES4, WK_PLANES8, WK_BITS, WK_TRITS };
+enum { WK_I8, WK_S4, WK_PLANES4, WK_PLANES8, WK_BITS, WK_TRITS, WK_WT };
 
 template <int WK, int BM> struct Tc {
   static constexpr int MT = BM >= 32 ? 2 : 1;            // m16 tiles a warp
@@ -1107,7 +1136,7 @@ template <int WK, int BM> struct Tc {
   static constexpr int XP = WK == WK_BITS ? 1 : WK == WK_TRITS ? 2 : 0;
   // weight bit planes staged raw (planes: the stack's BITS)
   static constexpr int WP = WK == WK_PLANES4 ? 4 : WK == WK_PLANES8 ? 8
-                            : WK == WK_TRITS ? 2 : 1;
+                            : WK == WK_TRITS || WK == WK_WT ? 2 : 1;
   static constexpr int BITS = WK == WK_PLANES4 ? 4 : WK == WK_PLANES8 ? 8 : 0;
   static constexpr int KQ = 4 * BN + 16;   // WK_I8: bytes of 4 staged K-major rows + pad
   // raw weight bytes staged per stage
@@ -1128,7 +1157,7 @@ struct TcArgs {
   void* out;
   int out_acc, M, N, K;
   int np;                // WK_PLANES*: live planes
-  long long pstride;     // WK_PLANES*, WK_TRITS: words from one weight plane to the next
+  long long pstride;     // WK_PLANES*, WK_TRITS, WK_WT: words from one weight plane to the next
   long long xpstride;    // WK_TRITS: words from the activation mask plane to the sign plane
   long long xg, wg;      // bytes from one group member's x / w to the next
   int xvec;              // activation rows 16-byte aligned (else 4-byte copies)
@@ -1258,8 +1287,15 @@ __device__ __forceinline__ void weights_to_codes(const TcArgs& a, const uint8_t*
 #pragma unroll
         for (int p = 0; p < T::WP; ++p)
           pw[p] = (T::BITS == 0 || p < a.np) ? Ws[(p * BN + c) * 4 + e] : 0u;
-        if constexpr (T::BITS) compose_word<T::BITS, T::BITS>(pw, cw);
-        else mxu_codes<T::WP>(pw, cw);
+        if constexpr (T::BITS) {
+          compose_word<T::BITS, T::BITS>(pw, cw);
+        } else if constexpr (WK == WK_WT) {
+          uint32_t t[8];
+          mxu_codes<2>(pw, t);
+          interleave32<true>(t, cw);
+        } else {
+          mxu_codes<T::WP>(pw, cw);
+        }
       }
       uint4* d = reinterpret_cast<uint4*>(Bc + c * T_LD + 32 * e);
       d[0] = make_uint4(cw[0], cw[1], cw[2], cw[3]);
@@ -1446,6 +1482,9 @@ __global__ void __launch_bounds__(T_THREADS, 2) bmxu_mma_kernel(TcArgs a) {
 __global__ void __launch_bounds__(T_THREADS, 2) tmxu_mma_kernel(TcArgs a) {
   mma_tile<WK_TRITS, T_BM>(a);
 }
+__global__ void __launch_bounds__(T_THREADS, 2) wt_mma_kernel(TcArgs a) {
+  mma_tile<WK_WT, T_BM>(a);
+}
 
 // `groups` GEMMs (gridDim.z) of the tile's kernel
 template <int WK, int BM, typename F>
@@ -1523,12 +1562,14 @@ inline long long words_between(const void* a, const void* b) {
           (long long)reinterpret_cast<uintptr_t>(a)) / 4;
 }
 
-template <int NP, int MS>
+// K7's streaming kernels, or K8's (WT)
+template <int NP, int MS, bool WT = false>
 int launch_mxu_stream(const uint32_t* x, long long xps, const uint32_t* w, long long wps,
                       const float* w_scale, const float* a_scale, const float* bias,
                       void* out, int out_acc, int M, int N, int K, int vec,
                       cudaStream_t stream) {
-  auto* kernel = NP == 1 ? bmxu_stream_kernel<MS> : tmxu_stream_kernel<MS>;
+  auto* kernel = WT ? wt_stream_kernel<MS>
+                    : NP == 1 ? bmxu_stream_kernel<MS> : tmxu_stream_kernel<MS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S_XMAX);
   if (attr != cudaSuccess) return (int)attr;
@@ -1569,6 +1610,32 @@ int launch_mxu(const void* x0, const void* x1, const void* w0, const void* w1,
   a.wvec = wvec;
   if constexpr (NP == 1) return launch_mma<WK_BITS, T_BM>(bmxu_mma_kernel, a, 1, stream);
   else return launch_mma<WK_TRITS, T_BM>(tmxu_mma_kernel, a, 1, stream);
+}
+
+// K8: int8 activations (M, K), 16-byte aligned, x (mask, sign) trit weight
+// planes (N, K/32) words each, w1 the sign plane
+int launch_wt(const void* x0, const void* w0, const void* w1, const float* w_scale,
+              const float* a_scale, const float* bias, void* out, int out_acc, int M,
+              int N, int K, cudaStream_t stream) {
+  const auto* x = static_cast<const uint32_t*>(x0);
+  const auto* w = static_cast<const uint32_t*>(w0);
+  if (K % 32 || !w1) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16) return (int)cudaErrorMisalignedAddress;
+  const long long wps = words_between(w0, w1);
+  const int kw = K / 32;
+  const int wvec = kw % 4 == 0 && wps % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (M <= SMALL_M && (long long)M * ((kw + 3) / 4) * 128 <= S_XMAX) {
+    if (M <= 4)
+      return launch_mxu_stream<2, 4, true>(x, 0, w, wps, w_scale, a_scale, bias, out,
+                                           out_acc, M, N, K, wvec, stream);
+    return launch_mxu_stream<2, SMALL_M, true>(x, 0, w, wps, w_scale, a_scale, bias, out,
+                                               out_acc, M, N, K, wvec, stream);
+  }
+  TcArgs a = tc_args(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.pstride = wps;
+  a.xvec = 1;                 // K % 32 == 0: every row starts 16-byte aligned
+  a.wvec = wvec;
+  return launch_mma<WK_WT, T_BM>(wt_mma_kernel, a, 1, stream);
 }
 
 template <int MS>
@@ -1754,10 +1821,10 @@ static int launch(int body, int groups, const void* x0, const void* x1,
 // storage unit; the wrapper checks). w_planes / w_plane_stride: the live
 // planes P (1 <= P <= the body's BITS) of a plane-stacked weight and the
 // words between two planes; ignored by the other bodies. The int8 (K1),
-// mxu (K7), s4 (K9) and plane (K10) bodies run their streaming kernel up
-// to SMALL_M rows and their tensor-core kernel above; the plane bodies'
-// activation rows must be 16-byte aligned, K1's and K9's operands 4-byte
-// aligned.
+// mxu (K7), wt-i8a (K8), s4 (K9) and plane (K10) bodies run their
+// streaming kernel up to SMALL_M rows and their tensor-core kernel above;
+// the plane bodies' and K8's activation rows must be 16-byte aligned, K1's
+// and K9's operands 4-byte aligned.
 // ws / ws_ints: a zeroed int32 scratch of ws_ints ints for K1's split of K
 // across blocks; the kernel leaves it zeroed. Launches on one stream may
 // share it, launches on two streams may not.
@@ -1786,6 +1853,8 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
     case BODY_TERNARY_MXU:
       return launch_mxu<2>(x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc, M, N, K,
                            stream);
+    case BODY_TERNARY_W_I8A:
+      return launch_wt(x0, w0, w1, w_scale, a_scale, bias, out, out_acc, M, N, K, stream);
     default:
       return launch(body, 1, x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc,
                     M, N, K, 0, 0, stream);

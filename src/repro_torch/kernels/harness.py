@@ -279,7 +279,9 @@ def _ptrs(body: MacBody, x_ops, w_ops):
 def _check_cuda(body: MacBody, x_ops, w_ops, scales, n: int) -> None:
     """What the CUDA kernel takes: contiguous operands on the card, int8
     codes or int32 words as the body's sides store them, f32 scales and
-    bias (None entries are skipped), and N % 4 == 0 for K-major weights."""
+    bias (None entries are skipped), N % 4 == 0 for K-major weights, and
+    int8 activations against bit-plane weight words (K8, K10) starting
+    16-byte aligned: their kernels load the rows 16 bytes at a time."""
     dev = x_ops[0].device
     if dev.type != "cuda":
         raise ValueError(f"gemm: unsupported device {dev}")
@@ -297,3 +299,6 @@ def _check_cuda(body: MacBody, x_ops, w_ops, scales, n: int) -> None:
                          f"{_dtype(body.xk)}, weight operands {_dtype(body.wk)}")
     if body.w_kmajor and n % 4:
         raise ValueError(f"{body.name}: K-major int8 weights need N % 4 == 0")
+    if body.xk == 1 and body.wk == 32 and x_ops[0].data_ptr() % 16:
+        raise ValueError(f"{body.name}: int8 activation rows must start 16-byte "
+                         f"aligned (an aligned storage offset)")

@@ -5,7 +5,10 @@
 CUDA tensors; for CPU tensors it runs `paged_decode_plain`, the gather
 algebra of the reference's `models.attention.attn_decode` paged path:
 gather the slot's pages into a dense (B, S, Hk, dh) view, dequantize,
-mask `tok <= pos`, softmax, weighted sum.
+mask `tok <= pos`, softmax, weighted sum. The kernel splits each row's
+tokens into CHUNK-token chunks, one block each, and merges the chunks'
+partials through a workspace (counters and partials) that `_workspace`
+keeps per device and stream.
 """
 from __future__ import annotations
 
@@ -17,11 +20,33 @@ from .build import Kernel
 
 NEG_INF = -1e30
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 PAGED_DECODE = Kernel("paged_attn", "repro_paged_decode",
                       [_I, _I, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _F, _F])
+                       _I, _I, _I, _I, _I, _I, _F, _F, _P, _L, _P, _L])
 _DT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+#: tokens a block of the kernel takes, at fixed positions (csrc/paged_attn.cu
+#: CHUNK; the kernel refuses a workspace too small for its chunks)
+CHUNK = 64
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(dev: torch.device, stream: int, ints: int, floats: int):
+    """The kernel's workspace on `stream` of `dev`: int32 counters, one per
+    (row, kv head), zero (the kernel leaves them zero), and f32 room for the
+    chunks' partials. Allocated at first use and again only when a launch
+    needs more, never per call; launches on one stream share it, launches
+    on two streams never do."""
+    key = (dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < ints or ws[1].numel() < floats:
+        had = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = _workspaces[key] = (
+            torch.zeros(max(ints, 2 * had[0], 1 << 10), dtype=torch.int32, device=dev),
+            torch.empty(max(floats, 2 * had[1], 1 << 16), dtype=torch.float32,
+                        device=dev))
+    return ws
 
 
 def kv_dequant(c: torch.Tensor, compute_dtype, kv_scale: float) -> torch.Tensor:
@@ -61,7 +86,8 @@ def paged_flash_decode(q, k_pool, v_pool, pages, pos, *, kv_scale: float = 0.05)
     dh), int8 codes at `kv_scale` or the compute dtype; pages: (B,
     max_pages) int32 (unallocated entries point at the scratch page 0);
     pos: (B,) int32 — the new token's KV must already be written at
-    pages[b, pos[b] // P] offset pos[b] % P. Returns (B, Hq, dh).
+    pages[b, pos[b] // P] offset pos[b] % P. Returns (B, Hq, dh). On the
+    card the pools must start 16-byte aligned, as whole tensors do.
     """
     b, hq, dh = q.shape
     num_pages, page_size, hk, dh_k = k_pool.shape
@@ -88,9 +114,18 @@ def paged_flash_decode(q, k_pool, v_pool, pages, pos, *, kv_scale: float = 0.05)
         raise ValueError(f"paged_flash_decode: needs dh % 32 == 0, dh <= 256 "
                          f"and <= 8 query heads per kv head (dh={dh}, "
                          f"G={hq // hk})")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_flash_decode: the pools must start 16-byte "
+                         "aligned (the kernel copies rows 16 bytes at a time)")
     out = torch.empty_like(q)
+    max_pages = pages.shape[1]
+    chunks = -(-max_pages * page_size // CHUNK)
+    stream = torch.cuda.current_stream().cuda_stream
+    cnt, part = _workspace(q.device, stream, b * hk,
+                           b * hk * chunks * (hq // hk) * (dh + 2))
     PAGED_DECODE(_DT[q.dtype], _DT[k_pool.dtype], q.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
-                 pos.data_ptr(), out.data_ptr(), b, pages.shape[1], page_size,
-                 hq, hk, dh, 1.0 / dh ** 0.5, kv_scale)
+                 pos.data_ptr(), out.data_ptr(), b, max_pages, page_size,
+                 hq, hk, dh, 1.0 / dh ** 0.5, kv_scale, cnt.data_ptr(), cnt.numel(),
+                 part.data_ptr(), part.numel(), stream=stream)
     return out

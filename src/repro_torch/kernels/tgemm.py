@@ -14,8 +14,11 @@ Trits are two bit-planes (mask, sign) per `core.pack`.
                      integer-exact, so equal to TERNARY_POPCOUNT.
   TERNARY_W_I8A    — mixed w-ternary x a-int8: (M, K) int8 activation codes
                      against trit weight planes unpacked to int8
-                     (BODY_TERNARY_W_I8A). The two sides have different
-                     densities: 1 code per unit for x, 32 per word for w.
+                     (BODY_TERNARY_W_I8A: `wt_stream_kernel` up to 8 rows,
+                     `wt_mma_kernel` on the int8 tensor cores above; its
+                     activation rows must start 16-byte aligned on the
+                     card). The two sides have different densities: 1
+                     code per unit for x, 32 per word for w.
 """
 from __future__ import annotations
 

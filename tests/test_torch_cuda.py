@@ -7,7 +7,7 @@ imports no JAX, so it runs on a machine that has only torch:
 
 Bars: the GEMM kernel's int32 accumulator and bf16 requant output are
 bit-equal to the plain version for every MAC body (ragged M and N, with and
-without bias; K1, K7 and K9 in both of their kernels, K1 with K split
+without bias; K1, K7, K8 and K9 in both of their kernels, K1 with K split
 across blocks), and the mxu bodies' accumulators equal the popcount bodies';
 the plane bodies (K10) are bit-equal to their plain version at every
 truncation depth P in 1..bits, in both regimes (up to 8 rows and above),
@@ -16,7 +16,9 @@ paged decode is within rtol=atol=2e-5 of the plain version for f32 queries
 (the bar of tests/test_paged_attn.py: the same algebra summed in another
 order) and 2e-2 for bf16 (the plain version rounds scores, probabilities
 and output to bf16, the kernel keeps f32 to the end; one bf16 step at
-|o| < 4 is 0.0156); flash attention is within the bars of
+|o| < 4 is 0.0156), at every G x dh instantiation, a 2048-token cache and
+16 verify rows, and each row of a multi-row launch is bit-equal to its own
+1-row launch (the kernel's chunks depend on positions alone); flash attention is within the bars of
 tests/test_flash_attn.py (f32 2e-4, bf16 3e-2: the same algebra summed in
 another order, so bf16 outputs may differ by a rounding step); a reduced
 model served through the kernels gives a 4-slot server the tokens of a
@@ -87,6 +89,8 @@ _TWO_KERNEL_SHAPES = {
     # (4-byte loads on both sides), 1024 is; N ragged or 3072
     bgemm.BINARY_MXU: [(160, 100), (4128, 200), (1024, 3072)],
     tgemm.TERNARY_MXU: [(160, 100), (4128, 200), (1024, 3072)],
+    # K8 likewise (trit weight words against int8 activation rows)
+    tgemm.TERNARY_W_I8A: [(160, 100), (4128, 200), (1024, 3072)],
 }
 _GEMM_CASES = ([(b, *s) for b in BODIES for s in _GEMM_SHAPES]
                + [(b, m, k, n) for b, kn in _TWO_KERNEL_SHAPES.items()
@@ -227,6 +231,104 @@ def test_paged_kernel_matches_plain(cuda, dtype, int8, tol, hq, hk, dh):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
                                rtol=tol, atol=tol)
+
+
+def _paged_args(rng, dtype, int8, hq, hk, dh, pos, max_pages, page=32, rows=None):
+    """q, pools, page table and positions of a paged decode: row r of the
+    table owns pages 1 + r * max_pages, ..., as many as its position needs
+    (`rows`: the table row each query reads, so that queries may share a
+    slot's pages), the rest point at the scratch page 0; K/V ~ N(0, 1) in
+    the compute dtype or as int8 codes at the static KV scale."""
+    rows = list(range(len(pos))) if rows is None else rows
+    slots = max(rows) + 1
+    table = np.zeros((slots, max_pages), np.int32)
+    for r in range(slots):
+        live = max(p for p, rr in zip(pos, rows) if rr == r) // page + 1
+        table[r, :live] = 1 + r * max_pages + np.arange(live)
+    shape = (1 + slots * max_pages, page, hk, dh)
+    pools = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             for _ in range(2)]
+    if int8:
+        pools = [torch.clamp(torch.round(t / 0.05), -127, 127).to(torch.int8)
+                 for t in pools]
+    else:
+        pools = [t.to(dtype) for t in pools]
+    q = torch.from_numpy(rng.standard_normal((len(pos), hq, dh)).astype(np.float32))
+    return (q.to(dtype), *pools, torch.from_numpy(table[rows]),
+            torch.from_numpy(np.asarray(pos, np.int32)))
+
+
+def _paged_vs_plain(cuda, args, tol):
+    want = paged_attn.paged_flash_decode(*args)
+    got = paged_attn.paged_flash_decode(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                               rtol=tol, atol=tol)
+    return got
+
+
+_PAGED_DTYPES = [(torch.float32, False, 2e-5), (torch.float32, True, 2e-5),
+                 (torch.bfloat16, False, 2e-2), (torch.bfloat16, True, 2e-2)]
+_PAGED_IDS = ["f32", "f32-int8kv", "bf16", "bf16-int8kv"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8,tol", _PAGED_DTYPES, ids=_PAGED_IDS)
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_paged_kernel_heads_and_dims(cuda, dtype, int8, tol, g, dh):
+    """Every G x dh instantiation, specialised or generic, with a row at
+    position 0 and rows of one to three 64-token chunks."""
+    rng = np.random.default_rng(g * 1000 + dh)
+    args = _paged_args(rng, dtype, int8, 2 * g, 2, dh, [0, 63, 64, 190], 8)
+    _paged_vs_plain(cuda, args, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8,tol", _PAGED_DTYPES, ids=_PAGED_IDS)
+def test_paged_kernel_long_context(cuda, dtype, int8, tol):
+    """A 2048-token cache (64 pages of 32): up to 32 chunks merged a row."""
+    rng = np.random.default_rng(7)
+    args = _paged_args(rng, dtype, int8, 24, 8, 128, [2047, 1000, 511, 1536], 64)
+    _paged_vs_plain(cuda, args, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8,tol", _PAGED_DTYPES, ids=_PAGED_IDS)
+def test_paged_kernel_verify_rows(cuda, dtype, int8, tol):
+    """16 speculative verify rows that share one slot's pages at consecutive
+    positions across a chunk boundary (120 .. 135): each within the bar of
+    the plain version and bit-equal to a 1-row launch at its position (the
+    decode step there)."""
+    rng = np.random.default_rng(8)
+    pos = list(range(120, 136))
+    args = _paged_args(rng, dtype, int8, 24, 8, 128, pos, 8, rows=[0] * 16)
+    got = _paged_vs_plain(cuda, args, tol)
+    dev = [a.to(cuda) for a in args]
+    for r in range(16):
+        one = paged_attn.paged_flash_decode(dev[0][r:r + 1], dev[1], dev[2],
+                                            dev[3][r:r + 1], dev[4][r:r + 1])
+        assert torch.equal(one, got[r:r + 1]), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8", [(torch.float32, False), (torch.bfloat16, False),
+                                        (torch.bfloat16, True)])
+@pytest.mark.parametrize("hq,hk,dh", [(24, 8, 128), (16, 16, 128), (4, 2, 32), (10, 2, 96)])
+def test_paged_kernel_batch_invariant(cuda, dtype, int8, hq, hk, dh):
+    """Each row of a 4-row launch is bit-equal to its own 1-row launch, with
+    the full table and with the table cut to the pages the row needs: the
+    chunks and the merge order depend on the row's position alone."""
+    rng = np.random.default_rng(hq + dh)
+    pos = [0, 77, 160, 1500]
+    q, kp, vp, pages, p = (a.to(cuda) for a in
+                           _paged_args(rng, dtype, int8, hq, hk, dh, pos, 64))
+    got = paged_attn.paged_flash_decode(q, kp, vp, pages, p)
+    for r, pr in enumerate(pos):
+        for width in (pages.shape[1], pr // 32 + 1):
+            one = paged_attn.paged_flash_decode(
+                q[r:r + 1], kp, vp, pages[r:r + 1, :width].contiguous(), p[r:r + 1])
+            assert torch.equal(one, got[r:r + 1]), (r, width)
 
 
 @pytest.mark.cuda
