@@ -9,16 +9,17 @@ Phases:
   2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc
                (one nvcc per source, in parallel) for sm_90a; prints each
                kernel's registers and spills, and fails unless the SASS
-               (cuobjdump) of K6's bf16 kernel holds HMMA/HGMMA and that of
+               (cuobjdump) of K6's bf16 kernel holds HMMA/HGMMA, that of
                the large-M kernels of K1, K7 (binary and ternary), K8, K9
-               and K10 IMMA/IGMMA instructions, or if K5's llama3.2-3b or
-               deepseek-moe-16b instantiation spills
+               and K10 IMMA/IGMMA and that of K3's and K4's BMMA/BGMMA
+               instructions, or if K5's llama3.2-3b or deepseek-moe-16b
+               instantiation or any of K3's and K4's kernels spills
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, at the serve path's full llama3.2-3b shapes: the packed
                GEMM under each of its seven MAC bodies at M = 4, 32 and 256,
-               the mxu bodies (K7), their popcount twins and wt-i8a (K8)
-               also at M = 8 and 9, each side of K7's and K8's switch from
-               the streaming kernel to the tensor-core kernel (int32
+               the mxu bodies (K7), their popcount twins (K3, K4) and
+               wt-i8a (K8) also at M = 8 and 9, each side of their switch
+               from the streaming kernel to the tensor-core kernel (int32
                accumulator and bf16 requant output bit-equal, bias on and
                off; the mxu bodies' accumulators equal the popcount
                bodies'; K9 at qkv, out, up
@@ -241,10 +242,17 @@ TENSOR_CORE_KERNELS = [("flash_attn", "flash_mma_kernel", ("HMMA", "HGMMA")),   
                        ("gemm", "planes_mma_kernel", ("IMMA", "IGMMA")),        # K10
                        ("gemm", "bmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7
                        ("gemm", "tmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7
-                       ("gemm", "wt_mma_kernel", ("IMMA", "IGMMA"))]            # K8
-#: K5 instantiations that must not spill: (G, dh) of llama3.2-3b and
-#: deepseek-moe-16b, as in `paged_decode_kernel<QT, KVT, G, dh>`
-NO_SPILL = {"paged_decode_kernel": ("Li3ELi128E", "Li1ELi128E")}
+                       ("gemm", "wt_mma_kernel", ("IMMA", "IGMMA")),            # K8
+                       # K3, K4: b1 products on the tensor cores (BMMA), not
+                       # emulated by a run of LOP3 / POPC
+                       ("gemm", "pop_mma_kernel", ("BMMA", "BGMMA"))]
+#: instantiations that must not spill: K5's (G, dh) of llama3.2-3b and
+#: deepseek-moe-16b, as in `paged_decode_kernel<QT, KVT, G, dh>`, and every
+#: instantiation of K3's and K4's kernels, which llama3.2-3b's binary and
+#: ternary ticks run (MS = 4 and 8 rows; NP = 1 and 2 planes)
+NO_SPILL = {"paged_decode_kernel": ("Li3ELi128E", "Li1ELi128E"),
+            "bpop_stream_kernel": ("Li4E", "Li8E"), "tpop_stream_kernel": ("Li4E", "Li8E"),
+            "pop_mma_kernel": ("Li1E", "Li2E")}
 
 
 def ptxas_report(name: str, text: str) -> dict:
@@ -281,9 +289,10 @@ def check_spills(spills: dict) -> None:
 
 def sass_tensor_cores() -> None:
     """cuobjdump -sass (the toolkit's, beside nvcc) of the built libraries:
-    K6's bf16 kernel must hold HMMA (or HGMMA) and the large-M kernels of
-    K1, K7, K9 and K10 IMMA (or IGMMA) instructions (each instantiation:
-    K1's and K9's row tiles, K10's bit widths)."""
+    K6's bf16 kernel must hold HMMA (or HGMMA), the large-M kernels of K1,
+    K7, K8, K9 and K10 IMMA (or IGMMA) and K3's and K4's BMMA (or BGMMA)
+    instructions (each instantiation: K1's and K9's row tiles, K10's bit
+    widths, K3's and K4's planes)."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
@@ -432,7 +441,7 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
             ops = 2.0 * m * n * k
             bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
             lib = None
-            if m > 16 and body.name not in ("bgemm_popcount", "tgemm_popcount"):
+            if m > 16:
                 xi, wi = unpacked_i8(body, x_ops, w_ops, k)
                 lib = time_ms(lambda: torch._int_mm(xi, wi), 20, flush)
                 del xi, wi

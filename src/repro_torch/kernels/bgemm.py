@@ -3,9 +3,13 @@
 Operands are bit-packed along K (32 per int32 word, bit = 1 encodes +1).
 Two formulations of the same integer dot:
 
-  BINARY_POPCOUNT — the CUDA body (`csrc/gemm.cu`, BODY_BINARY) sums
-                    `__popc(x ^ w)` mismatches; the dot is K - 2*mismatches.
-                    The plain version is `core.pack.binary_dot_words`.
+  BINARY_POPCOUNT — the CUDA body (`csrc/gemm.cu`, BODY_BINARY) keeps both
+                    sides packed: `bpop_stream_kernel` up to 8 rows sums
+                    `__popc(x ^ w)` mismatches (the dot is K -
+                    2*mismatches), `pop_mma_kernel` above runs the b1
+                    tensor cores' AND-popc on x, w and their complements
+                    (the dot is 2*agreements - K). The plain version is
+                    `core.pack.binary_dot_words`.
   BINARY_MXU      — both sides unpacked to ±1 int8 and dotted (the
                     reference's MXU body; on the card BODY_BINARY_MXU runs
                     `bmxu_stream_kernel` up to 8 rows, __dp4a on weight

@@ -35,8 +35,9 @@
 // trit planes or s4 nibbles), so each side is staged by its own density.
 //
 // MAC kinds. The popcount bodies work on packed words directly: XNOR sums
-// __popc(x ^ w) mismatches (dot = K - 2 * mismatches), gated XNOR keeps
-// active and disagree counts (dot = active - 2 * disagree). Every other
+// __popc(x ^ w) mismatches (dot = K - 2 * mismatches), gated XNOR adds
+// each word's active - 2 * disagree (pop_mac); above 8 rows the b1 tensor
+// cores take the same dots from AND-popc products (pop_mma_kernel). Every other
 // body is an int8 body: each side becomes words of four int8 codes of k,
 // multiplied by __dp4a (four MACs) or by the int8 tensor cores. int8 rows
 // are copied; K-major int8 weights are byte-transposed four columns at a
@@ -50,20 +51,23 @@
 // is the same number and equals the popcount bodies' dot bit for bit.
 //
 // Which kernel runs each body:
-// - K1 (BODY_I8), K7 (BODY_BINARY_MXU, BODY_TERNARY_MXU), K8
-//   (BODY_TERNARY_W_I8A), K9 (BODY_INT4_W_I8A) and K10 (the plane bodies),
-//   called ungrouped, run two kernels each, chosen by M. Up to SMALL_M = 8
-//   rows (decode and draft rows of 4 slots) a weight-streaming kernel:
-//   persistent blocks stage the activations once (as int8 codes: K7
-//   unpacks its bits or trits there) and stream the weights through
-//   registers with 16-byte loads, the next item's in flight while this one
-//   is multiplied, bound by the weight bytes and the launch floor (each
-//   weight byte feeds at most 8 rows).
-//   Above 8 rows (verify rows, the prefill buckets) one int8 tensor-core
-//   tile (mma.sync m16n8k32 s8, 128 x 64, a 3-stage cp.async ring) with
-//   each body's own weight stage into a padded int8 code tile, and for K7
-//   an activation stage too:
+// - Called ungrouped, every body runs two kernels, chosen by M. Up to
+//   SMALL_M = 8 rows (decode and draft rows of 4 slots) a weight-streaming
+//   kernel: persistent blocks stage the activations once (as int8 codes, K7
+//   unpacking its bits or trits there; K3 and K4 as their packed words) and
+//   stream the weights through registers with 16-byte loads, the next
+//   item's in flight while this one is multiplied, bound by the weight
+//   bytes and the launch floor (each weight byte feeds at most 8 rows).
+//   Above 8 rows (verify rows, the prefill buckets) one tensor-core tile on
+//   a 3-stage cp.async ring: for the int8 bodies 128 x 64 outputs on
+//   mma.sync m16n8k32 s8, with each body's own weight stage into a padded
+//   int8 code tile (and for K7 an activation stage too); for the popcount
+//   bodies 64 x 64 outputs on mma.sync m16n8k256 b1 (AND-popc), on the
+//   packed words as they arrive, both sides 1 or 2 bits a k from HBM to the
+//   tensor cores:
 //     K1   i8_stream_kernel (K split across blocks, int32 atomics)  i8_mma_kernel
+//     K3   bpop_stream_kernel                                        pop_mma_kernel<1>
+//     K4   tpop_stream_kernel                                        pop_mma_kernel<2>
 //     K7   bmxu_stream_kernel / tmxu_stream_kernel                   bmxu_mma_kernel / tmxu_mma_kernel
 //     K8   wt_stream_kernel                                          wt_mma_kernel
 //     K9   s4_stream_kernel                                          s4_mma_kernel
@@ -77,25 +81,20 @@
 //   G_SMALL_M = 16 rows and the 128-row one above. The MoE expert
 //   projections are G = E weight stacks at decode M = slots x capacity (16
 //   for 4 slots): the weight bytes of all experts bound them.
-// - gemm_kernel runs the popcount bodies (K3, K4), grouped or not, and the
-//   grouped mxu and wt-i8a bodies; no MoE configuration the port serves
-//   sends a binary, ternary, mxu or wt-i8a body to K11 (w-ternary experts
-//   are weight-only). The TPU grid's sequential K axis becomes a
-//   loop inside the block: a block owns one BM x BN output tile, walks K
-//   in KT-word stages through shared memory (KT packed words = 1024 k for
-//   the popcount bodies, KT four-code words = 128 k for the __dp4a
-//   bodies), and keeps its int32 accumulators in registers. Each warp owns
-//   one output column per lane and rows warp, warp+4, ... of the tile;
-//   rows past M are skipped warp-uniformly and columns past N are masked,
-//   so ragged M and N need no padding (the Pallas path pads M to 8); a
-//   grouped launch's grid has a third dimension over the groups. Bound: at
-//   decode (M = 4..32 rows) every weight word is used by only M rows, so
-//   the bytes of the packed weights (1 or 2 bits per weight) bound it, far
-//   below the integer-op roof; it coalesces the weight loads and keeps the
-//   tile small (BN = 32) so that the N/32 blocks spread over all SMs, but
-//   does not pipeline the loads (32-word stages, two barriers each, one
-//   load in flight per thread) or use the tensor cores: its bodies are
-//   later redesigns.
+// - gemm_kernel runs the other grouped bodies: popcount (K3, K4), mxu (K7)
+//   and wt-i8a (K8). No MoE configuration the port serves sends them to K11
+//   (w-ternary experts are weight-only), so it stays the TPU grid with its
+//   sequential K axis turned into a loop inside the block: a block owns one
+//   BM x BN output tile, walks K in KT-word stages through shared memory
+//   (KT packed words = 1024 k for the popcount bodies, KT four-code words =
+//   128 k for the __dp4a bodies), and keeps its int32 accumulators in
+//   registers. Each warp owns one output column per lane and rows warp,
+//   warp+4, ... of the tile; rows past M are skipped warp-uniformly and
+//   columns past N are masked, so ragged M and N need no padding (the
+//   Pallas path pads M to 8); the grid's third dimension is the groups. It
+//   neither pipelines its loads (32-word stages, two barriers each) nor
+//   uses the tensor cores: a grouped binary, ternary, mxu or wt-i8a call is
+//   not on any served path.
 //
 // Exactness. The epilogue keeps the reference's order exactly and uses
 // __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA, and rounds
@@ -126,32 +125,49 @@ enum { BODY_I8 = 0, BODY_BINARY = 1, BODY_TERNARY = 2, BODY_BINARY_MXU = 3,
 enum { F_I8, F_BITS, F_TRITS };
 enum { MAC_XNOR, MAC_GXNOR, MAC_DP4A };
 
+// One packed word of each plane of x and w: binary adds the mismatches
+// __popc(x ^ w) (dot = K - 2 * sum, pop_finish), ternary the gated XNOR's
+// active - 2 * disagree of this word directly (dot = sum). Zero words (past
+// K) add nothing to either.
+template <int NP>
+__device__ __forceinline__ int pop_mac(int acc, uint32_t x0, uint32_t x1, uint32_t w0,
+                                       uint32_t w1) {
+  if constexpr (NP == 1) {
+    return acc + __popc(x0 ^ w0);
+  } else {
+    const uint32_t active = x0 & w0;
+    return acc + __popc(active) - 2 * __popc(active & (x1 ^ w1));
+  }
+}
+template <int NP>
+__device__ __forceinline__ int pop_finish(int acc, int K) {
+  return NP == 1 ? K - 2 * acc : acc;
+}
+
 template <int MAC> struct Mac;
 
 template <> struct Mac<MAC_XNOR> {
-  static constexpr int PLANES = 1, NACC = 1, K_PER_WORD = 32;
-  __device__ static void mac(int* acc, const uint32_t* x, const uint32_t* w) {
-    acc[0] += __popc(x[0] ^ w[0]);                 // mismatches
+  static constexpr int PLANES = 1, K_PER_WORD = 32;
+  __device__ static int mac(int acc, const uint32_t* x, const uint32_t* w) {
+    return pop_mac<1>(acc, x[0], 0u, w[0], 0u);
   }
-  __device__ static int finish(const int* acc, int k) { return k - 2 * acc[0]; }
+  __device__ static int finish(int acc, int k) { return pop_finish<1>(acc, k); }
 };
 
 template <> struct Mac<MAC_GXNOR> {
-  static constexpr int PLANES = 2, NACC = 2, K_PER_WORD = 32;
-  __device__ static void mac(int* acc, const uint32_t* x, const uint32_t* w) {
-    const uint32_t active = x[0] & w[0];           // both trits non-zero
-    acc[0] += __popc(active);
-    acc[1] += __popc(active & (x[1] ^ w[1]));      // signs disagree
+  static constexpr int PLANES = 2, K_PER_WORD = 32;
+  __device__ static int mac(int acc, const uint32_t* x, const uint32_t* w) {
+    return pop_mac<2>(acc, x[0], x[1], w[0], w[1]);
   }
-  __device__ static int finish(const int* acc, int) { return acc[0] - 2 * acc[1]; }
+  __device__ static int finish(int acc, int k) { return pop_finish<2>(acc, k); }
 };
 
 template <> struct Mac<MAC_DP4A> {
-  static constexpr int PLANES = 1, NACC = 1, K_PER_WORD = 4;
-  __device__ static void mac(int* acc, const uint32_t* x, const uint32_t* w) {
-    acc[0] = __dp4a(static_cast<int>(x[0]), static_cast<int>(w[0]), acc[0]);
+  static constexpr int PLANES = 1, K_PER_WORD = 4;
+  __device__ static int mac(int acc, const uint32_t* x, const uint32_t* w) {
+    return __dp4a(static_cast<int>(x[0]), static_cast<int>(w[0]), acc);
   }
-  __device__ static int finish(const int* acc, int) { return acc[0]; }
+  __device__ static int finish(int acc, int) { return acc; }
 };
 
 // the bodies of gemm_kernel (the others run the kernels further down)
@@ -274,11 +290,9 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
   const int rows = min(BM, M - m0);
   const int KU = K / C::K_PER_WORD;                // staged words per row
 
-  int acc[RPT][C::NACC];
+  int acc[RPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int a = 0; a < C::NACC; ++a) acc[i][a] = 0;
+  for (int i = 0; i < RPT; ++i) acc[i] = 0;
 
   for (int ku0 = 0; ku0 < KU; ku0 += KT) {
     stage_rows<B::XF, B::MAC, C::PLANES, BM>(xs, x0, x1, m0, rows, ku0, K, tid);
@@ -298,7 +312,7 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
           uint32_t xv[C::PLANES];
 #pragma unroll
           for (int p = 0; p < C::PLANES; ++p) xv[p] = xs[p][r][c];
-          C::mac(acc[i], xv, wv);
+          acc[i] = C::mac(acc[i], xv, wv);
         }
       }
     }
@@ -516,6 +530,7 @@ __device__ __forceinline__ void mxu_codes(const uint32_t* pw, uint32_t* cw) {
 //              x + xpstride words
 template <int BITS, int NP> struct PlaneSide {
   static constexpr int PLANES = NP;
+  static constexpr bool PACKED = false;
   __device__ static void weights(const uint32_t* pw, uint32_t* cw) {
     planes_to_codes<BITS, NP>(pw, cw);
   }
@@ -535,6 +550,7 @@ template <int BITS, int NP> struct PlaneSide {
 
 template <int NP> struct MxuSide {
   static constexpr int PLANES = NP;
+  static constexpr bool PACKED = false;
   __device__ static void weights(const uint32_t* pw, uint32_t* cw) {
     mxu_codes<NP>(pw, cw);
   }
@@ -557,11 +573,21 @@ template <int NP> struct MxuSide {
 // K8: MxuSide's (mask, sign) trit weights x PlaneSide's int8 rows
 struct WtSide {
   static constexpr int PLANES = 2;
+  static constexpr bool PACKED = false;
   __device__ static void weights(const uint32_t* pw, uint32_t* cw) { mxu_codes<2>(pw, cw); }
   __device__ static void acts(const void* x, long long xpstride, int m, int bk, int K,
                               uint32_t* t) {
     PlaneSide<8, 1>::acts(x, xpstride, m, bk, K, t);
   }
+};
+
+// K3 / K4: bits (NP = 1) or (mask, sign) trits (NP = 2) on both sides, kept
+// packed from HBM to the ALU: no codes. The activations are staged as their
+// words and each weight word meets M staged words in one popcount MAC
+// (pop_mac); `weights` and `acts` are not used.
+template <int NP> struct PopSide {
+  static constexpr int PLANES = NP;
+  static constexpr bool PACKED = true;
 };
 
 // M <= MS rows (MS = 4 or 8) against D::PLANES weight planes.
@@ -577,7 +603,11 @@ struct WtSide {
 // codes in dynamic shared memory, each 32 k in planes_to_codes' k-interleaved
 // order, so that a lane multiplies its weight codes without putting them
 // back in k order; each 128-byte k-quad's eight 16-byte pieces rotated by
-// the quad index so that different k-lanes read distinct banks).
+// the quad index so that different k-lanes read distinct banks). A PACKED
+// side (K3, K4) stages its activation words as they are, one 16-byte piece
+// per k-quad and plane (M x K/8 bytes a plane: 8 KiB at 8 rows and K =
+// 8192), and multiplies each weight word with pop_mac: no codes on either
+// side.
 template <class D, int MS>
 __device__ __forceinline__ void stream_gemm(const void* __restrict__ x, long long xpstride,
                                             const uint32_t* __restrict__ w,
@@ -624,28 +654,46 @@ __device__ __forceinline__ void stream_gemm(const void* __restrict__ x, long lon
     for (int u = 0; u < U; ++u) {
       const int q = q0 + S_KL * u;
       if (q >= nq) break;
-      const uint4* xq = xs + q * 8;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {               // plane word e: k 32e..32e+31
-        uint32_t pw[NP], cw[8];                   // codes, k-interleaved like xs
-#pragma unroll
-        for (int p = 0; p < NP; ++p) pw[p] = lane_of(buf[u][p], e);
-        D::weights(pw, cw);
+      if constexpr (D::PACKED) {
+        const uint4* xq = xs + q * NP;
 #pragma unroll
         for (int m = 0; m < MS; ++m) {
-          if (m < M) {                            // warp-uniform
-            const uint4 xa = xq[m * nq * 8 + ((2 * e + q) & 7)];
-            const uint4 xb = xq[m * nq * 8 + ((2 * e + 1 + q) & 7)];
+          if (m < M) {                          // warp-uniform
+            const uint4 x0 = xq[m * nq * NP];
+            const uint4 x1 = NP == 2 ? xq[m * nq * NP + 1] : x0;
+            const uint4 w1 = buf[u][NP - 1];
             int a = acc[m];
-            a = __dp4a(static_cast<int>(xa.x), static_cast<int>(cw[0]), a);
-            a = __dp4a(static_cast<int>(xa.y), static_cast<int>(cw[1]), a);
-            a = __dp4a(static_cast<int>(xa.z), static_cast<int>(cw[2]), a);
-            a = __dp4a(static_cast<int>(xa.w), static_cast<int>(cw[3]), a);
-            a = __dp4a(static_cast<int>(xb.x), static_cast<int>(cw[4]), a);
-            a = __dp4a(static_cast<int>(xb.y), static_cast<int>(cw[5]), a);
-            a = __dp4a(static_cast<int>(xb.z), static_cast<int>(cw[6]), a);
-            a = __dp4a(static_cast<int>(xb.w), static_cast<int>(cw[7]), a);
+            a = pop_mac<NP>(a, x0.x, x1.x, buf[u][0].x, w1.x);
+            a = pop_mac<NP>(a, x0.y, x1.y, buf[u][0].y, w1.y);
+            a = pop_mac<NP>(a, x0.z, x1.z, buf[u][0].z, w1.z);
+            a = pop_mac<NP>(a, x0.w, x1.w, buf[u][0].w, w1.w);
             acc[m] = a;
+          }
+        }
+      } else {
+        const uint4* xq = xs + q * 8;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {             // plane word e: k 32e..32e+31
+          uint32_t pw[NP], cw[8];                 // codes, k-interleaved like xs
+#pragma unroll
+          for (int p = 0; p < NP; ++p) pw[p] = lane_of(buf[u][p], e);
+          D::weights(pw, cw);
+#pragma unroll
+          for (int m = 0; m < MS; ++m) {
+            if (m < M) {                          // warp-uniform
+              const uint4 xa = xq[m * nq * 8 + ((2 * e + q) & 7)];
+              const uint4 xb = xq[m * nq * 8 + ((2 * e + 1 + q) & 7)];
+              int a = acc[m];
+              a = __dp4a(static_cast<int>(xa.x), static_cast<int>(cw[0]), a);
+              a = __dp4a(static_cast<int>(xa.y), static_cast<int>(cw[1]), a);
+              a = __dp4a(static_cast<int>(xa.z), static_cast<int>(cw[2]), a);
+              a = __dp4a(static_cast<int>(xa.w), static_cast<int>(cw[3]), a);
+              a = __dp4a(static_cast<int>(xb.x), static_cast<int>(cw[4]), a);
+              a = __dp4a(static_cast<int>(xb.y), static_cast<int>(cw[5]), a);
+              a = __dp4a(static_cast<int>(xb.z), static_cast<int>(cw[6]), a);
+              a = __dp4a(static_cast<int>(xb.w), static_cast<int>(cw[7]), a);
+              acc[m] = a;
+            }
           }
         }
       }
@@ -660,6 +708,7 @@ __device__ __forceinline__ void stream_gemm(const void* __restrict__ x, long lon
       for (int o = 32 / S_KL; o < 32; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
       acc[m] = 0;
       const int n = column(it);
+      if constexpr (D::PACKED) a = pop_finish<NP>(a, K);
       if (n < N && m < M && m == kl)
         store_out(out, out_acc, (size_t)m * N + n, a, w_scale, a_scale, bias, m, n);
     }
@@ -667,14 +716,27 @@ __device__ __forceinline__ void stream_gemm(const void* __restrict__ x, long lon
 
   uint4 ba[U][NP], bb[U][NP];
   if (items > 0) load_item(0, ba);
-  // 32 k at a time, in planes_to_codes' k-interleaved order, as two pieces
-  for (int i = tid; i < M * nq * 4; i += S_THREADS) {
-    const int m = i / (nq * 4), bk = i % (nq * 4), kq = bk >> 2, e = bk & 3;
-    uint32_t t[8];
-    D::acts(x, xpstride, m, bk, K, t);
-    uint4* row = xs + m * nq * 8 + kq * 8;
-    row[(2 * e + kq) & 7] = make_uint4(t[0], t[1], t[2], t[3]);
-    row[(2 * e + 1 + kq) & 7] = make_uint4(t[4], t[5], t[6], t[7]);
+  if constexpr (D::PACKED) {
+    // a k-quad's 4 words of each plane as one piece, [M][nq][NP], zero past K
+    const auto* xw = static_cast<const uint32_t*>(x);
+    for (int i = tid; i < M * nq * NP; i += S_THREADS) {
+      const int m = i / (nq * NP), q = i / NP % nq, p = i % NP;
+      const uint32_t* row = xw + p * xpstride + (size_t)m * kw;
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = 4 * q + e < kw ? __ldg(row + 4 * q + e) : 0u;
+      xs[i] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+    // 32 k at a time, in planes_to_codes' k-interleaved order, as two pieces
+    for (int i = tid; i < M * nq * 4; i += S_THREADS) {
+      const int m = i / (nq * 4), bk = i % (nq * 4), kq = bk >> 2, e = bk & 3;
+      uint32_t t[8];
+      D::acts(x, xpstride, m, bk, K, t);
+      uint4* row = xs + m * nq * 8 + kq * 8;
+      row[(2 * e + kq) & 7] = make_uint4(t[0], t[1], t[2], t[3]);
+      row[(2 * e + 1 + kq) & 7] = make_uint4(t[4], t[5], t[6], t[7]);
+    }
   }
   __syncthreads();
   // two register buffers, unrolled by hand so neither is indexed at run time
@@ -721,6 +783,32 @@ tmxu_stream_kernel(const uint32_t* __restrict__ x, long long xpstride,
                    const float* __restrict__ bias, void* __restrict__ out, int out_acc,
                    int M, int N, int K, int vec) {
   stream_gemm<MxuSide<2>, MS>(x, xpstride, w, pstride, w_scale, a_scale, bias, out,
+                              out_acc, M, N, K, vec);
+}
+
+// K3 / K4: bits (bpop) or (mask, sign) trits (tpop) on both sides, packed:
+// per 32 k and row one XOR and one POPC (binary) or two ANDs, an XOR and
+// two POPCs (ternary) on words straight from HBM, so at decode the 1- or
+// 2-bit weight bytes, the POPC rate (16 a clock an SM) and the launch floor
+// are of one order, the floor the largest
+template <int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+bpop_stream_kernel(const uint32_t* __restrict__ x, long long xpstride,
+                   const uint32_t* __restrict__ w, long long pstride,
+                   const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                   const float* __restrict__ bias, void* __restrict__ out, int out_acc,
+                   int M, int N, int K, int vec) {
+  stream_gemm<PopSide<1>, MS>(x, xpstride, w, pstride, w_scale, a_scale, bias, out,
+                              out_acc, M, N, K, vec);
+}
+template <int MS>
+__global__ void __launch_bounds__(S_THREADS, 4)
+tpop_stream_kernel(const uint32_t* __restrict__ x, long long xpstride,
+                   const uint32_t* __restrict__ w, long long pstride,
+                   const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+                   const float* __restrict__ bias, void* __restrict__ out, int out_acc,
+                   int M, int N, int K, int vec) {
+  stream_gemm<PopSide<2>, MS>(x, xpstride, w, pstride, w_scale, a_scale, bias, out,
                               out_acc, M, N, K, vec);
 }
 
@@ -1486,6 +1574,177 @@ __global__ void __launch_bounds__(T_THREADS, 2) wt_mma_kernel(TcArgs a) {
   mma_tile<WK_WT, T_BM>(a);
 }
 
+// ---------------------------------------------------------------------------
+// K3 / K4, large M: the packed operands on the b1 tensor cores
+// ---------------------------------------------------------------------------
+
+// A 64 x 64 output tile of 8 warps of 16 x 32 (4 along M x 2 along N) on
+// mma.sync m16n8k256 b1 with AND-popc (mma_b1; BMMA in the SASS, so the
+// tensor cores run it). Its fragments have the s8 m16n8k32 layout with a
+// register holding one packed word (32 k) instead of four codes, so a bit
+// tile staged as rows of packed words is read by the int8 tile's ldmatrix
+// addressing unchanged, 32 bytes = 256 k a step. Neither side is unpacked:
+// a 3-stage cp.async ring brings
+// KB bytes (8 KB k) of each plane of each row and column straight into the
+// padded rows the fragments are loaded from (PopTile::LD: the 8 rows of an
+// ldmatrix in distinct banks), and the AND-popc identities run on the
+// fragments in registers:
+//   binary   agree = P(x, w) + P(~x, ~w), dot = 2 agree - K. Zero words past
+//            K agree under the complement (rows past M and columns past N
+//            are never stored), so the epilogue takes the padding, nst * KS
+//            - K, off agree.
+//   ternary  positive and negative planes xq = xm & ~xs, xn = xm & xs (the
+//            mask applied to the sign plane, so that a sign bit under a
+//            zero mask counts for nothing, as in the gated XNOR), the same
+//            for w; agree = P(xq, wq) + P(xn, wn), active = P(xm, wm), dot =
+//            2 agree - active: three products per 256 k into two
+//            accumulator sets.
+// Each is exact in int32, so the dot is the popcount bodies' bit for bit.
+// 64 rows, not the int8 tile's 128: at 32 x 32 a warp the ternary
+// accumulators and fragments spilled, and a 32-row prefill bucket pads
+// fewer rows. Bound: the b1 products (2 or 3 per 256 k) at M = 256, for
+// which Hopper publishes no rate; up to the 32-row bucket the launch and
+// the ring's first stages.
+constexpr int P_THREADS = 256;
+constexpr int P_BM = 64, P_BN = 64;
+constexpr int P_STAGES = 3;
+
+template <int NP> struct PopTile {
+  static constexpr int KB = NP == 1 ? 128 : 64;  // bytes of a row and plane a stage
+  static constexpr int KS = 8 * KB;              // k a stage: 1024 | 512
+  static constexpr int LD = KB + 16;             // padded row pitch, bytes
+  static constexpr int A = NP * P_BM * LD;       // activation bytes of a stage
+  static constexpr int STAGE = NP * (P_BM + P_BN) * LD;   // bytes of a stage
+};
+
+// cp.async the words kw0 .. kw0 + KB/4 - 1 of each plane of rows row0 ..
+// row0 + ROWS - 1 (`valid` of them real, plane p at src + p * pstride) into
+// dst [plane][ROWS][LD], zero past `valid` and past K; `vec`: 16-byte
+// copies (rows 16-byte aligned, K/32 a multiple of 4)
+template <int NP, int ROWS>
+__device__ __forceinline__ void pop_stage(const uint32_t* src, long long pstride, int row0,
+                                          int valid, int kw, int kw0, uint8_t* dst, int vec,
+                                          int tid) {
+  using P = PopTile<NP>;
+  constexpr int C = P::KB / 16;                  // 16-byte pieces of a row
+  if (vec) {
+    for (int i = tid; i < NP * ROWS * C; i += P_THREADS) {
+      const int p = i / (ROWS * C), r = i / C % ROWS, c = i % C;
+      const int row = row0 + r, kq = kw0 + 4 * c;
+      const bool ok = row < valid && kq < kw;
+      cp_async16(dst + (p * ROWS + r) * P::LD + 16 * c,
+                 ok ? src + p * pstride + (size_t)row * kw + kq : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < NP * ROWS * C * 4; i += P_THREADS) {
+      const int p = i / (ROWS * C * 4), r = i / (C * 4) % ROWS, j = i % (C * 4);
+      const int row = row0 + r, kq = kw0 + j;
+      const bool ok = row < valid && kq < kw;
+      cp_async4(dst + (p * ROWS + r) * P::LD + 4 * j,
+                ok ? src + p * pstride + (size_t)row * kw + kq : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// bits (NP = 1) or (mask, sign) trits (NP = 2) on both sides: x (M, K/32)
+// words a plane, the sign plane at x + xps words, w (N, K/32) likewise
+template <int NP>
+__global__ void __launch_bounds__(P_THREADS, 2)
+pop_mma_kernel(const uint32_t* __restrict__ x, long long xps,
+               const uint32_t* __restrict__ w, long long wps,
+               const float* __restrict__ w_scale, const float* __restrict__ a_scale,
+               const float* __restrict__ bias, void* __restrict__ out, int out_acc, int M,
+               int N, int K, int xvec, int wvec) {
+  using P = PopTile<NP>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % 4, wn = warp / 4;
+  const int m0 = blockIdx.y * P_BM, n0 = blockIdx.x * P_BN;
+  const int kw = K / 32, nst = (K + P::KS - 1) / P::KS;
+
+  auto load_stage = [&](int st) {
+    uint8_t* s = smem + (st % P_STAGES) * P::STAGE;
+    const int kw0 = st * (P::KS / 32);
+    pop_stage<NP, P_BM>(x, xps, m0, M, kw, kw0, s, xvec, tid);
+    pop_stage<NP, P_BN>(w, wps, n0, N, kw, kw0, s + P::A, wvec, tid);
+  };
+
+  int acc[4][4], act[4][4];          // act: ternary's active count
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = act[j][c] = 0;
+
+#pragma unroll
+  for (int s = 0; s < P_STAGES - 1; ++s) {
+    if (s < nst) load_stage(s);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<P_STAGES - 2>();        // this stage's copies have landed
+    __syncthreads();                      // ... everyone's; the last stage is consumed
+    if (st + P_STAGES - 1 < nst) load_stage(st + P_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* As = smem + (st % P_STAGES) * P::STAGE;
+    const uint8_t* Bs = As + P::A;
+#pragma unroll
+    for (int ks = 0; ks < P::KB / 32; ++ks) {
+      uint32_t af[NP][4], bf[NP][4][2];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        ldsm_x4(af[p], As + (p * P_BM + wm * 16 + (lane & 15)) * P::LD + 32 * ks +
+                           16 * (lane >> 4));
+#pragma unroll
+        for (int nt = 0; nt < 4; nt += 2) {
+          uint32_t r[4];
+          ldsm_x4(r, Bs + (p * P_BN + wn * 32 + nt * 8 + (lane & 7) + 8 * (lane >> 4)) *
+                              P::LD + 32 * ks + 16 * ((lane >> 3) & 1));
+          bf[p][nt][0] = r[0];
+          bf[p][nt][1] = r[1];
+          bf[p][nt + 1][0] = r[2];
+          bf[p][nt + 1][1] = r[3];
+        }
+      }
+      if constexpr (NP == 1) {
+        const uint32_t na[4] = {~af[0][0], ~af[0][1], ~af[0][2], ~af[0][3]};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_b1(acc[nt], af[0], bf[0][nt][0], bf[0][nt][1]);
+          mma_b1(acc[nt], na, ~bf[0][nt][0], ~bf[0][nt][1]);
+        }
+      } else {
+        uint32_t aq[4], an[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          aq[i] = af[0][i] & ~af[1][i];
+          an[i] = af[0][i] & af[1][i];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint32_t* mk = bf[0][nt];
+          const uint32_t* sg = bf[1][nt];
+          mma_b1(acc[nt], aq, mk[0] & ~sg[0], mk[1] & ~sg[1]);
+          mma_b1(acc[nt], an, mk[0] & sg[0], mk[1] & sg[1]);
+          mma_b1(act[nt], af[0], mk[0], mk[1]);
+        }
+      }
+    }
+  }
+
+  // accumulator fragment: c0, c1 at (row g, columns 2t, 2t+1), c2, c3 at row g + 8
+  const int g = lane >> 2, t4 = lane & 3, pad = nst * P::KS - K;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + wm * 16 + g + 8 * (e >> 1);
+      const int n = n0 + wn * 32 + nt * 8 + 2 * t4 + (e & 1);
+      const int dot = NP == 1 ? 2 * (acc[nt][e] - pad) - K : 2 * acc[nt][e] - act[nt][e];
+      if (m < M && n < N)
+        store_out(out, out_acc, (size_t)m * N + n, dot, w_scale, a_scale, bias, m, n);
+    }
+}
+
 // `groups` GEMMs (gridDim.z) of the tile's kernel
 template <int WK, int BM, typename F>
 int launch_mma(F* kernel, const TcArgs& a, int groups, cudaStream_t stream) {
@@ -1562,18 +1821,24 @@ inline long long words_between(const void* a, const void* b) {
           (long long)reinterpret_cast<uintptr_t>(a)) / 4;
 }
 
-// K7's streaming kernels, or K8's (WT)
-template <int NP, int MS, bool WT = false>
+enum { S_MXU, S_WT, S_POP };
+
+// The streaming kernels over bit-plane weight words: K7's (S_MXU), K8's
+// (S_WT) or K3's / K4's (S_POP)
+template <int NP, int MS, int SIDE = S_MXU>
 int launch_mxu_stream(const uint32_t* x, long long xps, const uint32_t* w, long long wps,
                       const float* w_scale, const float* a_scale, const float* bias,
                       void* out, int out_acc, int M, int N, int K, int vec,
                       cudaStream_t stream) {
-  auto* kernel = WT ? wt_stream_kernel<MS>
-                    : NP == 1 ? bmxu_stream_kernel<MS> : tmxu_stream_kernel<MS>;
+  auto* kernel = SIDE == S_WT    ? wt_stream_kernel<MS>
+                 : SIDE == S_POP ? (NP == 1 ? bpop_stream_kernel<MS> : tpop_stream_kernel<MS>)
+                 : NP == 1       ? bmxu_stream_kernel<MS>
+                                 : tmxu_stream_kernel<MS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S_XMAX);
   if (attr != cudaSuccess) return (int)attr;
-  const int smem = M * ((K / 32 + 3) / 4) * 128;   // <= S_XMAX (launch_mxu)
+  // staged: int8 codes, 128 bytes a k-quad, or packed words, 16 a plane
+  const int smem = M * ((K / 32 + 3) / 4) * (SIDE == S_POP ? 16 * NP : 128);   // <= S_XMAX
   static std::atomic<int> fit[S_XMAX / 128 + 1];
   int blocks = 0;
   if (int e = resident_blocks(kernel, smem, fit, &blocks)) return e;
@@ -1612,6 +1877,39 @@ int launch_mxu(const void* x0, const void* x1, const void* w0, const void* w1,
   else return launch_mma<WK_TRITS, T_BM>(tmxu_mma_kernel, a, 1, stream);
 }
 
+// K3 / K4: bits (NP = 1) or (mask, sign) trit planes (NP = 2) on both
+// sides, packed, x (M, K/32) and w (N, K/32) words a plane; x1 / w1 the sign
+// planes. Up to SMALL_M rows the packed weight stream, above the b1 tile.
+template <int NP>
+int launch_pop(const void* x0, const void* x1, const void* w0, const void* w1,
+               const float* w_scale, const float* a_scale, const float* bias, void* out,
+               int out_acc, int M, int N, int K, cudaStream_t stream) {
+  const auto* x = static_cast<const uint32_t*>(x0);
+  const auto* w = static_cast<const uint32_t*>(w0);
+  if (K % 32 || (NP == 2 && (!x1 || !w1))) return (int)cudaErrorInvalidValue;
+  const long long xps = NP == 2 ? words_between(x0, x1) : 0;
+  const long long wps = NP == 2 ? words_between(w0, w1) : 0;
+  const int kw = K / 32;
+  const int wvec = kw % 4 == 0 && wps % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (M <= SMALL_M && (long long)M * ((kw + 3) / 4) * 16 * NP <= S_XMAX) {
+    if (M <= 4)
+      return launch_mxu_stream<NP, 4, S_POP>(x, xps, w, wps, w_scale, a_scale, bias, out,
+                                             out_acc, M, N, K, wvec, stream);
+    return launch_mxu_stream<NP, SMALL_M, S_POP>(x, xps, w, wps, w_scale, a_scale, bias,
+                                                 out, out_acc, M, N, K, wvec, stream);
+  }
+  const int xvec = kw % 4 == 0 && xps % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto* kernel = pop_mma_kernel<NP>;
+  constexpr int smem = P_STAGES * PopTile<NP>::STAGE;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((N + P_BN - 1) / P_BN, (M + P_BM - 1) / P_BM);
+  kernel<<<grid, P_THREADS, smem, stream>>>(x, xps, w, wps, w_scale, a_scale, bias, out,
+                                            out_acc, M, N, K, xvec, wvec);
+  return (int)cudaGetLastError();
+}
+
 // K8: int8 activations (M, K), 16-byte aligned, x (mask, sign) trit weight
 // planes (N, K/32) words each, w1 the sign plane
 int launch_wt(const void* x0, const void* w0, const void* w1, const float* w_scale,
@@ -1626,9 +1924,9 @@ int launch_wt(const void* x0, const void* w0, const void* w1, const float* w_sca
   const int wvec = kw % 4 == 0 && wps % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   if (M <= SMALL_M && (long long)M * ((kw + 3) / 4) * 128 <= S_XMAX) {
     if (M <= 4)
-      return launch_mxu_stream<2, 4, true>(x, 0, w, wps, w_scale, a_scale, bias, out,
+      return launch_mxu_stream<2, 4, S_WT>(x, 0, w, wps, w_scale, a_scale, bias, out,
                                            out_acc, M, N, K, wvec, stream);
-    return launch_mxu_stream<2, SMALL_M, true>(x, 0, w, wps, w_scale, a_scale, bias, out,
+    return launch_mxu_stream<2, SMALL_M, S_WT>(x, 0, w, wps, w_scale, a_scale, bias, out,
                                                out_acc, M, N, K, wvec, stream);
   }
   TcArgs a = tc_args(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K);
@@ -1855,6 +2153,12 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
                            stream);
     case BODY_TERNARY_W_I8A:
       return launch_wt(x0, w0, w1, w_scale, a_scale, bias, out, out_acc, M, N, K, stream);
+    case BODY_BINARY:
+      return launch_pop<1>(x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                           stream);
+    case BODY_TERNARY:
+      return launch_pop<2>(x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc, M, N, K,
+                           stream);
     default:
       return launch(body, 1, x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc,
                     M, N, K, 0, 0, stream);

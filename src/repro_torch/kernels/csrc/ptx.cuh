@@ -1,6 +1,7 @@
 // PTX helpers shared by the tensor-core kernels (flash_attn.cu, gemm.cu):
-// cp.async copies global -> shared, ldmatrix fragment loads, and the int8
-// mma.sync that gemm.cu's three tensor-core GEMMs (K1, K9, K10) share.
+// cp.async copies global -> shared, ldmatrix fragment loads, the int8
+// mma.sync of gemm.cu's int8 tensor-core tile and the b1 (AND-popc)
+// mma.sync of its popcount tile.
 #pragma once
 
 #include <stdint.h>
@@ -39,6 +40,18 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
+}
+
+// d += popc(a & b): a 16 x 256 bits (row), b 256 x 8 bits (col), int32
+// accumulators; the fragments have mma_s8's layout, a register holding 32 k
+// (one packed word) where mma_s8's holds 4
+__device__ __forceinline__ void mma_b1(int* d, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d += a (16 x 32 s8, row) . b (32 x 8 s8, col), int32 accumulators

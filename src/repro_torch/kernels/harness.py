@@ -61,7 +61,8 @@ GEMM_GROUPED = Kernel("gemm", "repro_gemm_grouped",
 
 @dataclasses.dataclass(frozen=True)
 class Tile:
-    """The CUDA kernel's block shape: bm x bn outputs per block, bkq 32-bit
+    """The block shape of `gemm_kernel`, which runs the grouped calls of the
+    popcount, mxu and wt-i8a bodies: bm x bn outputs per block, bkq 32-bit
     words of K per shared-memory stage (packed words for the popcount
     bodies, words of four int8 codes for the __dp4a bodies). Compile-time
     constants of `csrc/gemm.cu`; `kernel_tile()` reads them from the built

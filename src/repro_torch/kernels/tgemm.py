@@ -2,12 +2,17 @@
 
 Trits are two bit-planes (mask, sign) per `core.pack`.
 
-  TERNARY_POPCOUNT — the CUDA body (`csrc/gemm.cu`, BODY_TERNARY) keeps two
-                     int32 accumulators
-                         active   += popc(xm & wm)
-                         disagree += popc(xm & wm & (xs ^ ws))
-                     and the dot is active - 2*disagree. The plain version
-                     is `core.pack.ternary_dot_words`.
+  TERNARY_POPCOUNT — the gated XNOR: with
+                         active   = popc(xm & wm)
+                         disagree = popc(xm & wm & (xs ^ ws))
+                     the dot is active - 2*disagree. The CUDA body
+                     (`csrc/gemm.cu`, BODY_TERNARY) keeps both sides
+                     packed: `tpop_stream_kernel` up to 8 rows adds each
+                     word's active - 2*disagree, `pop_mma_kernel` above runs
+                     the b1 tensor cores' AND-popc on the positive and
+                     negative planes (m & ~s, m & s) and the masks, dot =
+                     2*agree - active. The plain version is
+                     `core.pack.ternary_dot_words`.
   TERNARY_MXU      — both sides unpacked to {-1,0,+1} int8 and dotted
                      (BODY_TERNARY_MXU: `tmxu_stream_kernel` up to 8 rows,
                      `tmxu_mma_kernel` on the int8 tensor cores above);

@@ -91,6 +91,11 @@ _TWO_KERNEL_SHAPES = {
     tgemm.TERNARY_MXU: [(160, 100), (4128, 200), (1024, 3072)],
     # K8 likewise (trit weight words against int8 activation rows)
     tgemm.TERNARY_W_I8A: [(160, 100), (4128, 200), (1024, 3072)],
+    # K3 and K4 (the packed weight stream up to 8 rows, the b1 tile above)
+    # at K7's shapes: K = 160 and 4128 take 4-byte loads and are ragged
+    # against the tile's 1024- / 512-k stage, 1024 is not
+    bgemm.BINARY_POPCOUNT: [(160, 100), (4128, 200), (1024, 3072)],
+    tgemm.TERNARY_POPCOUNT: [(160, 100), (4128, 200), (1024, 3072)],
 }
 _GEMM_CASES = ([(b, *s) for b in BODIES for s in _GEMM_SHAPES]
                + [(b, m, k, n) for b, kn in _TWO_KERNEL_SHAPES.items()
@@ -114,9 +119,15 @@ def test_gemm_kernel_bit_equal_to_plain(cuda, body, m, k, n):
         assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
 
 
+#: K is a multiple of 32 (one packed word) on both formulations; 1056 (33
+#: words) and 1152 (36) are not multiples of 32 words, so neither fills the
+#: popcount tile's last stage, at 8 and 9 rows (each side of the switch from
+#: the streaming kernels to the tiles) and at 33
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(4, 3072, 200), (32, 8192, 96), (8, 160, 100),
-                                   (9, 4128, 200), (256, 1024, 300)])
+                                   (9, 4128, 200), (256, 1024, 300), (8, 1056, 130),
+                                   (9, 1056, 130), (8, 1152, 72), (9, 1152, 72),
+                                   (33, 1152, 200)])
 @pytest.mark.parametrize("mxu,popcount", [
     (bgemm.BINARY_MXU, bgemm.BINARY_POPCOUNT),
     (tgemm.TERNARY_MXU, tgemm.TERNARY_POPCOUNT)], ids=["binary", "ternary"])
@@ -127,6 +138,33 @@ def test_mxu_kernel_equals_popcount_kernel(cuda, mxu, popcount, m, k, n):
     a = harness.gemm(mxu, dev(x), dev(w), None, None, k=k, out="acc")
     b = harness.gemm(popcount, dev(x), dev(w), None, None, k=k, out="acc")
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 9, 256])
+def test_ternary_kernel_ignores_sign_under_zero_mask(cuda, m):
+    """Every sign bit set on both sides, a sparse mask: the gated XNOR
+    reads a sign only where its mask is 1, so the kernel (the packed stream
+    at 4 rows, the b1 tile at 9 and 256) equals the plain version and the
+    same operands with the sign planes cut to their masks."""
+    k, n = 1056, 200
+    gen = torch.Generator().manual_seed(m)
+    body = tgemm.TERNARY_POPCOUNT
+
+    def sparse(rows):           # about one bit in eight
+        a, b, c = (torch.randint(-2 ** 31, 2 ** 31 - 1, (rows, k // 32),
+                                 dtype=torch.int32, generator=gen) for _ in range(3))
+        return a & b & c
+
+    xm, wm = sparse(m), sparse(n)
+    xs, ws = (torch.full_like(t, -1) for t in (xm, wm))
+    acc = harness.gemm(body, (xm.to(cuda), xs.to(cuda)), (wm.to(cuda), ws.to(cuda)),
+                       None, None, k=k, out="acc")
+    cut = harness.gemm(body, (xm.to(cuda), (xs & xm).to(cuda)),
+                       (wm.to(cuda), (ws & wm).to(cuda)), None, None, k=k, out="acc")
+    want = harness.gemm(body, (xm, xs), (wm, ws), None, None, k=k, out="acc")
+    torch.cuda.synchronize()
+    assert torch.equal(acc.cpu(), want) and torch.equal(cut.cpu(), want)
 
 
 #: both K10 regimes (the streaming kernel up to 8 rows, the tensor-core
