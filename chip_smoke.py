@@ -37,7 +37,13 @@ Phases:
                deepseek-moe-16b (G = 64) and phi3.5-moe-42b-a6.6b (G = 16),
                M = 4, 16 and 128 rows per expert (1- and 4-slot decode, a
                prefill slab), K9 and K1 bodies (bit-equal to the plain
-               version and to G ungrouped launches); with
+               version and to G ungrouped launches); K10 over expert stacks
+               (the plane bodies grouped) at the same shapes and rows, P = 1
+               and bits live planes (bit-equal to the plain version and to
+               G ungrouped K10 launches, and at P = bits to K11's int4 /
+               int8 body on the composed codes); the grouped bodies still
+               on gemm_kernel (K3, K4, K7, K8) at deepseek-moe-16b's decode
+               tick shape (bit-equal, timed); with
                kernel, plain and library times and the bound of each
   4. serve   — full-width, 28-layer llama3.2-3b from the port's seeded init,
                8 requests through the paged continuous-batching server:
@@ -70,10 +76,19 @@ Phases:
                K11) at 4 layers; 4-slot tokens == 1-slot tokens, the routing
                counters (moe_routed == sum(moe_expert_tokens) +
                moe_dropped), and the GEMM launches exactly one per layer per
-               forward call, one K11 launch per expert projection; then one
-               profiled 4-slot decode tick of deepseek het
-  6. launches — every kernel was launched on the serve path
-  7. summary — one line per kernel, then one JSON line of kernel records:
+               forward call, one K11 launch per expert projection;
+               deepseek het also with `--impl planes` and with
+               `--spec-draft planes:1 --spec-k 4`, phi3.5-moe het with
+               `--impl planes` (K10 over expert stacks; tokens == the
+               direct run's, 4-slot == 1-slot, launches counted exactly);
+               deepseek at 4 layers under binary, ternary, ternary with
+               `--impl mxu` and wt-a8 (the grouped gemm_kernel bodies);
+               then one profiled 4-slot decode tick of deepseek het, direct
+               and under `--impl planes`
+  6. archs   — qwen1.5-32b (4 of 64 layers) and nemotron-4-340b (2 of 96)
+               at full width under ternary: 4-slot == 1-slot tokens
+  7. launches — every kernel was launched on the serve path
+  8. summary — one line per kernel, then one JSON line of kernel records:
                ms, plain_ms, bound_ms and library_ms are per decode tick of
                the serve path for a GEMM body (4 slots, the layers that run
                it: 28 x {qkv, out, up, down} + lm_head for a whole-model body,
@@ -81,7 +96,8 @@ Phases:
                the int4 plane body), 28 launches for paged
                decode, per 256-token prefill (28 layers) for flash
                attention, and per 4-slot deepseek-moe-16b het decode tick
-               (28 x {up, down} expert stacks, K9 body) for K11
+               (28 x {up, down} expert stacks) for K11 (K9 body) and for K10
+               over expert stacks (int4 stacks, P = 4)
 The last line is {"ok": true, "device": {...}} only when every phase passed;
 any failure exits non-zero. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -150,6 +166,12 @@ MOE_ARCHS = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b")
 #: (slots x capacity 4) and a prefill-sized slab
 GROUPED_ROWS = (4, 16, 128)
 TICK_ROWS = 16               # the 4-slot decode tick's, timed per tick
+LIB_ROWS = 128               # rows an expert where torch._int_mm is timed beside
+#: grouped bodies still on gemm_kernel (K3, K4, K7, K8), timed at the
+#: deepseek-moe-16b decode tick's shape; and the 4-layer deepseek runs
+#: that send its expert projections there: (policy, impl)
+FIRST_VERSION_RUNS = (("binary", "popcount"), ("ternary", "popcount"),
+                      ("ternary", "mxu"), ("wt-a8", "popcount"))
 #: GEMM rows checked: decode (4 slots), both prefill buckets, and for the
 #: mxu bodies (K7) and their popcount twins each side of K7's switch from
 #: its streaming kernel (up to 8 rows) to its tensor-core kernel
@@ -170,6 +192,10 @@ REPLACES = {
                        "_flash_kernel :31)",
     "gemm_grouped": "src/repro/kernels/harness.py:257 (gemm_grouped; on one "
                     "device the expert vmap of dispatch.py:927-931)",
+    "gemm_grouped_planes": "src/repro/kernels/harness.py:257 (gemm_grouped with "
+                           "PLANES_W4_I8A / PLANES_W8_I8A, pgemm.py:39 _planes_step, "
+                           ":61, :62; on one device the expert vmap of "
+                           "dispatch.py:927-931)",
 }
 SOURCE = {name: "src/repro_torch/kernels/csrc/gemm.cu" for name in REPLACES}
 SOURCE["paged_flash_decode"] = "src/repro_torch/kernels/csrc/paged_attn.cu"
@@ -489,6 +515,46 @@ def grouped_plain(body, x_ops, w_ops, ws, as_, bias, k, out="requant"):
     return torch.stack(ys)
 
 
+def grouped_stack(body, g, m, n, k, gen):
+    """Operands of `body` with a leading group axis of g on the card: the
+    members of `gemm_operands`, stacked."""
+    parts = [gemm_operands(body, m, n, k, gen) for _ in range(g)]
+    x_ops = tuple(torch.stack([p[0][j] for p in parts]) for j in range(body.n_x))
+    w_ops = tuple(torch.stack([p[1][j] for p in parts]) for j in range(body.n_w))
+    ws, as_, bias = (torch.stack([p[j] for p in parts]) for j in (2, 3, 4))
+    return x_ops, w_ops, ws, as_, bias
+
+
+def grouped_bit_equal(label, body, x_ops, w_ops, ws, as_, bias, k):
+    """One grouped launch == its plain version == G ungrouped launches of
+    `body`: int32 accumulator, and bf16 output with bias off and on.
+    Returns the accumulator."""
+    from repro_torch.kernels import harness
+    g = x_ops[0].shape[0]
+    acc = harness.gemm_grouped(body, x_ops, w_ops, None, None, k=k, out="acc")
+    dot = grouped_plain(body, x_ops, w_ops, None, None, None, k, "acc")
+    if not torch.equal(acc, dot):
+        raise AssertionError(f"{label}: accumulator != plain")
+    members = [([t[i] for t in x_ops], [t[i] for t in w_ops]) for i in range(g)]
+    for i, (xi, wi) in enumerate(members):
+        if not torch.equal(acc[i], harness.gemm(body, xi, wi, None, None, k=k,
+                                                out="acc")):
+            raise AssertionError(f"{label}: group {i} != ungrouped")
+    for b in (None, bias):
+        got = harness.gemm_grouped(body, x_ops, w_ops, ws, as_, b, k=k)
+        want = torch.stack([harness.requant(dot[i], ws[i], as_[i],
+                                            None if b is None else b[i]
+                                            ).to(torch.bfloat16) for i in range(g)])
+        loop = torch.stack([harness.gemm(body, xi, wi, ws[i], as_[i],
+                                         None if b is None else b[i], k=k)
+                            for i, (xi, wi) in enumerate(members)])
+        if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
+                and torch.equal(got.view(torch.int16), loop.view(torch.int16))):
+            raise AssertionError(f"{label} bias={b is not None}: kernel != plain / "
+                                 f"ungrouped")
+    return acc
+
+
 def check_grouped(flush, gen) -> dict:
     """K11 vs its plain version and vs G ungrouped launches of the same
     body, at the full-width expert shapes of deepseek-moe-16b and
@@ -506,36 +572,9 @@ def check_grouped(flush, gen) -> dict:
             for body in (i4gemm.INT4_W_I8A, i8gemm.I8_DOT):
                 for m in GROUPED_ROWS:
                     gen.manual_seed(3000 * m + g + n + body.body_id)
-                    parts = [gemm_operands(body, m, n, k, gen) for _ in range(g)]
-                    x_ops = (torch.stack([p[0][0] for p in parts]),)
-                    w_ops = (torch.stack([p[1][0] for p in parts]),)
-                    ws, as_, bias = (torch.stack([p[j] for p in parts])
-                                     for j in (2, 3, 4))
-                    del parts
-                    acc = harness.gemm_grouped(body, x_ops, w_ops, None, None,
-                                               k=k, out="acc")
-                    if not torch.equal(acc, grouped_plain(body, x_ops, w_ops, None,
-                                                          None, None, k, "acc")):
-                        raise AssertionError(f"K11 {body.name} {arch} {name} M={m}: "
-                                             f"accumulator != plain")
-                    for i in range(g):
-                        one = harness.gemm(body, (x_ops[0][i],), (w_ops[0][i],),
-                                           None, None, k=k, out="acc")
-                        if not torch.equal(acc[i], one):
-                            raise AssertionError(f"K11 {body.name} {arch} {name} "
-                                                 f"M={m}: group {i} != ungrouped")
-                    for b in (None, bias):
-                        got = harness.gemm_grouped(body, x_ops, w_ops, ws, as_, b, k=k)
-                        want = grouped_plain(body, x_ops, w_ops, ws, as_, b, k)
-                        loop = torch.stack([harness.gemm(
-                            body, (x_ops[0][i],), (w_ops[0][i],), ws[i], as_[i],
-                            None if b is None else b[i], k=k) for i in range(g)])
-                        if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
-                                and torch.equal(got.view(torch.int16),
-                                                loop.view(torch.int16))):
-                            raise AssertionError(f"K11 {body.name} {arch} {name} M={m} "
-                                                 f"bias={b is not None}: kernel != "
-                                                 f"plain / ungrouped")
+                    x_ops, w_ops, ws, as_, bias = grouped_stack(body, g, m, n, k, gen)
+                    acc = grouped_bit_equal(f"K11 {body.name} {arch} {name} M={m}", body,
+                                            x_ops, w_ops, ws, as_, bias, k)
                     ms = time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws,
                                                               as_, k=k), 10, flush)
                     nbytes = (sum(t.numel() * t.element_size() for t in x_ops + w_ops)
@@ -571,6 +610,143 @@ def check_grouped(flush, gen) -> dict:
             "bound_by": "bytes" if t_b >= t_o else "operations",
             # het's experts run the s4 x int8 body: PyTorch has no such GEMM
             "library_ms": None}
+
+
+def check_grouped_planes(flush, gen) -> dict:
+    """K10 over expert stacks (the plane bodies grouped) vs its plain
+    version and vs G ungrouped K10 launches, at the full-width expert shapes
+    of deepseek-moe-16b and phi3.5-moe-42b-a6.6b, M = 4, 16 and 128 rows an
+    expert, P = 1 and bits live planes (the leading-P view of the full
+    stack, read in place): int32 accumulator and bf16 output (bias on and
+    off) bit-equal; at P = bits the accumulator equals K11's int4 / int8
+    body on the composed codes. Each shape timed at both depths; at M = 128
+    `torch._int_mm` once per expert on the composed codes beside it.
+    Returns the record of a 4-slot deepseek-moe-16b het decode tick under
+    `--impl planes` at P = 4: 28 layers x {up, down} at M = 16 on the int4
+    stacks, one launch each (the P = 1 draft's tick logged beside it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pack
+    from repro_torch.kernels import harness, i4gemm, i8gemm, pgemm
+    tick = {"ms": {1: 0.0, 4: 0.0}, "bytes": {1: 0.0, 4: 0.0}, "plain_ms": 0.0,
+            "ops": 0.0}
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        for name, g, n, k in moe_gemm_shapes(cfg):
+            for body, direct in ((pgemm.PLANES_W4_I8A, i4gemm.INT4_W_I8A),
+                                 (pgemm.PLANES_W8_I8A, i8gemm.I8_DOT)):
+                bits = body.w_stack
+                for m in GROUPED_ROWS:
+                    gen.manual_seed(4000 * m + g + n + bits)
+                    x = torch.randint(-127, 128, (g, m, k), dtype=torch.int8,
+                                      device="cuda", generator=gen)
+                    stack = torch.randint(-2 ** 31, 2 ** 31 - 1, (g, bits, n, k // 32),
+                                          dtype=torch.int32, device="cuda",
+                                          generator=gen)
+                    ws = torch.rand(g, n, device="cuda", generator=gen) * 0.1 + 1e-3
+                    as_ = torch.rand(g, m, device="cuda", generator=gen) + 0.1
+                    bias = torch.randn(g, n, device="cuda", generator=gen)
+                    label = f"K10 grouped {body.name} {arch} {name} M={m}"
+                    ms, nbytes = {}, {}
+                    for p in (1, bits):
+                        w = (stack[:, :p],)
+                        acc = grouped_bit_equal(f"{label} P={p}", body, (x,), w, ws,
+                                                as_, bias, k)
+                        ms[p] = time_ms(lambda: harness.gemm_grouped(
+                            body, (x,), w, ws, as_, k=k), 10, flush)
+                        nbytes[p] = (g * m * k + g * p * n * (k // 32) * 4
+                                     + 4 * g * (m + n) + 2 * g * m * n)
+                    codes = torch.stack([composed_codes(stack[i], k, bits)
+                                         for i in range(g)])          # (g, n, k)
+                    wd = (codes.transpose(-1, -2).contiguous() if bits == 8
+                          else pack.pack_int4(codes))
+                    if not torch.equal(acc, harness.gemm_grouped(
+                            direct, (x,), (wd,), None, None, k=k, out="acc")):
+                        raise AssertionError(f"{label}: P = {bits} accumulator != "
+                                             f"{direct.name} grouped accumulator")
+                    del wd
+                    ops = 2.0 * g * m * n * k
+                    bound = {p: max(b / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+                             for p, b in nbytes.items()}
+                    msg = (f"[kernels] gemm_grouped_planes {body.name} {arch} {name:4s} "
+                           f"G={g} M={m:3d} N={n:5d} K={k}: bit-equal to plain and to "
+                           f"{g} ungrouped launches at P in (1, {bits}), P={bits} == "
+                           f"{direct.name}  kernel "
+                           + " / ".join(f"P={p} {t:.4f}" for p, t in ms.items())
+                           + " ms  bound " + " / ".join(f"P={p} {t:.4f}"
+                                                        for p, t in bound.items())
+                           + " ms")
+                    if m == TICK_ROWS:
+                        full = (stack,)
+                        pms = time_ms(lambda: grouped_plain(body, (x,), full, ws, as_,
+                                                            None, k), 1)
+                        msg += f"  plain {pms:.2f} ms"
+                        if arch == MOE_ARCHS[0] and bits == 4:
+                            n_l = cfg.n_layers
+                            for p in (1, 4):
+                                tick["ms"][p] += n_l * ms[p]
+                                tick["bytes"][p] += n_l * nbytes[p]
+                            tick["plain_ms"] += n_l * pms
+                            tick["ops"] += n_l * ops
+                    if m == LIB_ROWS:
+                        xs, cs = list(x), [c.T.contiguous() for c in codes]
+                        lib = time_ms(lambda: [torch._int_mm(a, c)
+                                               for a, c in zip(xs, cs)], 10, flush)
+                        msg += f"  torch._int_mm x {g} experts {lib:.4f} ms"
+                        del xs, cs
+                    log(msg)
+                    del x, stack, codes, acc
+                    torch.cuda.empty_cache()
+    t_o = tick["ops"] / INT8_OPS_PER_S
+    bounds = {p: max(tick["bytes"][p] / HBM_BYTES_PER_S, t_o) * 1e3 for p in (1, 4)}
+    log(f"[kernels] gemm_grouped_planes deepseek-moe-16b het {SLOTS}-slot decode tick "
+        f"(28 x {{up, down}}, M={TICK_ROWS}): P=4 {tick['ms'][4]:.3f} ms (bound "
+        f"{bounds[4]:.4f}), P=1 {tick['ms'][1]:.3f} ms (bound {bounds[1]:.4f}); "
+        f"P=1 / P=4 = {tick['ms'][1] / tick['ms'][4]:.3f}")
+    t_b = tick["bytes"][4] / HBM_BYTES_PER_S
+    return {"name": "gemm_grouped_planes", "max_abs_err": 0.0, "ms": tick["ms"][4],
+            "plain_ms": tick["plain_ms"], "bound_ms": bounds[4],
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            # torch._int_mm needs M > 16 rows; timed at M = 128 above
+            "library_ms": None}
+
+
+def check_grouped_first_version(flush, gen) -> None:
+    """The grouped bodies still on gemm_kernel (K3, K4, K7, K8), which MoE
+    runs under binary, ternary, mixed, wt-a8 or --impl mxu reach: at the
+    deepseek-moe-16b decode tick's expert shapes (G = 64, M = 16), bit-equal
+    to the plain version and to G ungrouped launches, each timed; logs the
+    4-slot tick (28 x {up, down}) of each beside its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bgemm, harness, tgemm
+    cfg = get_config(MOE_ARCHS[0])
+    for body in (bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT, bgemm.BINARY_MXU,
+                 tgemm.TERNARY_MXU, tgemm.TERNARY_W_I8A):
+        tick_ms, tick_pms, tick_b, tick_o = 0.0, 0.0, 0.0, 0.0
+        for name, g, n, k in moe_gemm_shapes(cfg):
+            gen.manual_seed(5000 + g + n + body.body_id)
+            x_ops, w_ops, ws, as_, bias = grouped_stack(body, g, TICK_ROWS, n, k, gen)
+            grouped_bit_equal(f"gemm_kernel grouped {body.name} {name}", body, x_ops,
+                              w_ops, ws, as_, bias, k)
+            ms = time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws, as_, k=k),
+                         10, flush)
+            pms = time_ms(lambda: grouped_plain(body, x_ops, w_ops, ws, as_, None, k), 1)
+            nbytes = (sum(t.numel() * t.element_size() for t in x_ops + w_ops)
+                      + 4 * g * (TICK_ROWS + n) + 2 * g * TICK_ROWS * n)
+            ops = 2.0 * g * TICK_ROWS * n * k
+            log(f"[kernels] gemm_grouped (gemm_kernel) {body.name:15s} {name:4s} G={g} "
+                f"M={TICK_ROWS} N={n} K={k}: bit-equal to plain and to {g} ungrouped "
+                f"launches  kernel {ms:.4f} ms  plain {pms:.2f} ms  bound "
+                f"{max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3:.4f} ms")
+            tick_ms += cfg.n_layers * ms
+            tick_pms += cfg.n_layers * pms
+            tick_b += cfg.n_layers * nbytes
+            tick_o += cfg.n_layers * ops
+            del x_ops, w_ops, ws, as_, bias
+        t_b, t_o = tick_b / HBM_BYTES_PER_S, tick_o / INT8_OPS_PER_S
+        log(f"[kernels] gemm_grouped (gemm_kernel) {body.name} deepseek-moe-16b "
+            f"{SLOTS}-slot decode tick (28 x {{up, down}}): {tick_ms:.3f} ms (plain "
+            f"{tick_pms:.1f} ms, bound {max(t_b, t_o) * 1e3:.4f} ms, "
+            f"{'bytes' if t_b >= t_o else 'operations'})")
 
 
 def composed_codes(stack, k, bits, chunk=8192):
@@ -872,6 +1048,8 @@ def phase_kernels(cfg, recs: list) -> None:
     recs.append(check_flash(cfg, flush, gen, LONG_BUCKET))
     check_flash(cfg, flush, gen, LONG_PROMPT)
     recs.append(check_grouped(flush, gen))
+    recs.append(check_grouped_planes(flush, gen))
+    check_grouped_first_version(flush, gen)
     log("[kernels] mxu accumulators == popcount accumulators at every shape")
 
 
@@ -927,17 +1105,27 @@ def linear_specs(cfg) -> list:
     return specs
 
 
-def gemm_launches_per_call(cfg, impl="popcount") -> dict:
+def draft_ctx(spec_draft):
+    """The speculative draft's context for `--spec-draft planes[:DEPTH]`."""
+    from repro_torch.models.common import ModelCtx
+    depth = spec_draft.partition(":")[2]
+    return ModelCtx(impl="planes", draft_planes=int(depth or 1))
+
+
+def gemm_launches_per_call(cfg, impl="popcount", ctx=None) -> dict:
     """GEMM kernel -> its launches in one forward call (a prefill or a
-    decode tick): one per layer that resolves to its body, and one grouped
-    launch (K11) per expert stack with a body."""
+    decode tick) under `ctx` (default: the `impl` formulation): one per
+    layer that resolves to its body, and one grouped launch per expert
+    stack with a body (K11, or K10 over expert stacks for a plane body)."""
     from repro_torch.kernels import dispatch
     from repro_torch.models.common import ModelCtx, operating_point
+    ctx = ctx or ModelCtx(impl=impl)
     out = {}
     for spec in linear_specs(cfg):
-        body = dispatch.lookup(operating_point(spec, ModelCtx(impl=impl))).body
+        body = dispatch.lookup(operating_point(spec, ctx)).body
         if body is not None:
-            name = "gemm_grouped" if spec.experts else body.name
+            name = (("gemm_grouped_planes" if body.w_stack else "gemm_grouped")
+                    if spec.experts else body.name)
             out[name] = out.get(name, 0) + 1
     return out
 
@@ -950,14 +1138,7 @@ def expected_kernels(cfg, impl, reqs, spec_draft=None) -> set:
     256."""
     want = {"paged_flash_decode"} | set(gemm_launches_per_call(cfg, impl))
     if spec_draft:
-        depth = spec_draft.partition(":")[2]
-        from repro_torch.kernels import dispatch
-        from repro_torch.models.common import ModelCtx, operating_point
-        ctx = ModelCtx(impl="planes", draft_planes=int(depth or 1))
-        for spec in linear_specs(cfg):
-            body = dispatch.lookup(operating_point(spec, ctx)).body
-            if body is not None:
-                want.add(body.name)
+        want |= set(gemm_launches_per_call(cfg, ctx=draft_ctx(spec_draft)))
     if any(len(p) > CACHE_LEN // 2 for p in reqs):
         want.add("flash_attention")
     return want
@@ -1004,8 +1185,8 @@ def served(label, cfg, sparams, impl, reqs, device_name, total,
     return out
 
 
-def same_as_one_slot(label, cfg, sparams, impl, reqs, want) -> None:
-    srv, ticks, dt = serve(cfg, sparams, 1, reqs, impl)
+def same_as_one_slot(label, cfg, sparams, impl, reqs, want, spec_draft=None) -> None:
+    srv, ticks, dt = serve(cfg, sparams, 1, reqs, impl, spec_draft)
     seq = {r.rid: r.out for r in srv.completed}
     if seq != want:
         bad = [i for i in seq if seq[i] != want.get(i)]
@@ -1115,13 +1296,22 @@ def planes_and_spec(cfgs, packed, twins, outs, mixed, device_name, total) -> Non
 #: MoE serve runs: (arch, policy, layers; None = the arch's full depth)
 MOE_RUNS = (("deepseek-moe-16b", "het", None), ("deepseek-moe-16b", "int8", None),
             ("phi3.5-moe-42b-a6.6b", "het", 4), ("deepseek-moe-16b", "w-ternary", 4))
+#: runs beside a MoE run's direct one, on the same weights packed with the
+#: plane twin: (impl, spec_draft); each must emit the direct run's tokens
+MOE_PLANE_RUNS = {MOE_RUNS[0]: (("planes", None), ("popcount", "planes:1")),
+                  MOE_RUNS[2]: (("planes", None),)}
+#: dense archs at full width and cut depth: (arch, policy, layers)
+DENSE_RUNS = (("qwen1.5-32b", "ternary", 4), ("nemotron-4-340b", "ternary", 2))
 
 
-def moe_checks(label, cfg):
+def moe_checks(label, cfg, impl="popcount", spec_draft=None):
     """The MoE run's own checks: the routing counters add up, and the
     GEMM launches are exactly one per layer per forward call, one grouped
-    launch (K11) per expert projection, none of the ungrouped bodies per
-    expert."""
+    launch (K11, or K10 over expert stacks) per expert projection, none of
+    the ungrouped bodies per expert. A speculative run's forward calls are
+    its prefills and verify steps under the run's context and its draft
+    steps under the draft's; the draft steps are counted by the grouped
+    plane launches, which only they make."""
     def check(srv, runs):
         st = srv.stats
         et = st["moe_expert_tokens"]
@@ -1129,15 +1319,26 @@ def moe_checks(label, cfg):
             raise AssertionError(f"{label}: moe_routed {st['moe_routed']} != "
                                  f"sum(moe_expert_tokens) {sum(et)} + moe_dropped "
                                  f"{st['moe_dropped']}")
-        calls = st["prefills"] + st["decode_ticks"]
-        want = {n: c * calls for n, c in gemm_launches_per_call(cfg).items()}
+        calls = st["prefills"] + st["decode_ticks"] + st["spec_ticks"]
+        want = {n: c * calls for n, c in gemm_launches_per_call(cfg, impl).items()}
+        drafts = 0
+        if spec_draft:
+            per = gemm_launches_per_call(cfg, ctx=draft_ctx(spec_draft))
+            drafts, rest = divmod(runs["gemm_grouped_planes"], per["gemm_grouped_planes"])
+            if rest or not 0 < drafts <= st["spec_ticks"] * (SPEC_K - 1):
+                raise AssertionError(f"{label}: {runs['gemm_grouped_planes']} grouped "
+                                     f"plane launches are no whole number of draft "
+                                     f"steps ({st['spec_ticks']} spec ticks)")
+            for n, c in per.items():
+                want[n] = want.get(n, 0) + c * drafts
         got = {n: c for n, c in runs.items() if c and n not in ATTENTION_KERNELS}
         if got != want:
             raise AssertionError(f"{label}: GEMM launches {got} != {want} "
-                                 f"({calls} forward calls)")
+                                 f"({calls} forward calls, {drafts} draft steps)")
         log(f"[moe] {label}: moe_routed {st['moe_routed']} == sum(moe_expert_tokens) "
             f"{sum(et)} + moe_dropped {st['moe_dropped']}; expert tokens min "
-            f"{min(et)} max {max(et)}; GEMM launches {got} == per call x {calls} calls")
+            f"{min(et)} max {max(et)}; GEMM launches {got} == per call x {calls} calls"
+            + (f" + per draft step x {drafts} draft steps" if spec_draft else ""))
     return check
 
 
@@ -1149,27 +1350,48 @@ def phase_moe(device_name, launches) -> None:
     (weight-only experts, no K11) at 4 layers. Each from the port's seeded
     init, packed block by block, on the serve CLI's prompts: 4-slot tokens
     == 1-slot tokens, routing counters printed and checked, GEMM launches
-    counted exactly; then one profiled 4-slot decode tick of deepseek het."""
+    counted exactly. Deepseek het (full depth) is also served with `--impl
+    planes` and with `--spec-draft planes:1 --spec-k 4`, phi3.5-moe het with
+    `--impl planes` (K10 over expert stacks): tokens == the direct run's,
+    4-slot == 1-slot, launches counted exactly. Then deepseek at 4 layers
+    under each policy / impl that sends the expert projections to the
+    grouped gemm_kernel bodies (K3, K4, K7, K8); then one profiled 4-slot
+    decode tick of deepseek het, direct and under `--impl planes`."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.common import ModelCtx
-    for arch, policy, layers in MOE_RUNS:
+    deep4 = tuple((MOE_ARCHS[0], pol, 4, impl) for pol, impl in FIRST_VERSION_RUNS)
+    for arch, policy, layers, impl in [r + ("popcount",) for r in MOE_RUNS] + list(deep4):
         cfg = dataclasses.replace(get_config(arch), policy=policy)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         gen = torch.Generator(device="cuda").manual_seed(3)
         t0 = time.perf_counter()
-        sparams, train_b = transformer.init_for_serve(cfg, gen, "cuda")
+        plane_runs = MOE_PLANE_RUNS.get((arch, policy, layers), ()) if impl == "popcount" else ()
+        sparams, train_b = transformer.init_for_serve(cfg, gen, "cuda",
+                                                      plane_twins=bool(plane_runs))
         torch.cuda.synchronize()
-        label = f"{arch} policy={policy} ({cfg.n_layers} layers)"
+        label = (f"{arch} policy={policy}" + (f" impl={impl}" if impl != "popcount"
+                                              else "") + f" ({cfg.n_layers} layers)")
         log(f"[moe] {label}: d_model {cfg.d_model}, {cfg.n_experts} experts top-"
             f"{cfg.top_k}, {cfg.n_shared_experts} shared, d_ff {cfg.d_ff}; train "
             f"layout {train_b / 2 ** 30:.2f} GiB, seeded init + pack block by block "
             f"in {time.perf_counter() - t0:.1f}s")
         reqs = prompts(cfg)
-        out = served(label, cfg, sparams, "popcount", reqs, device_name, launches,
-                     on_done=moe_checks(label, cfg))
-        same_as_one_slot(label, cfg, sparams, "popcount", reqs, out)
+        out = served(label, cfg, sparams, impl, reqs, device_name, launches,
+                     on_done=moe_checks(label, cfg, impl))
+        same_as_one_slot(label, cfg, sparams, impl, reqs, out)
+        for p_impl, draft in plane_runs:
+            plabel = (f"{arch} policy={policy} " + (f"spec-draft={draft} spec-k={SPEC_K}"
+                                                     if draft else f"impl={p_impl}")
+                      + f" ({cfg.n_layers} layers)")
+            got = served(plabel, cfg, sparams, p_impl, reqs, device_name, launches,
+                         spec_draft=draft, on_done=moe_checks(plabel, cfg, p_impl, draft))
+            if got != out:
+                raise AssertionError(f"{plabel}: tokens != the direct run's tokens")
+            log(f"[moe] {plabel}: " + ("spec tokens == sequential tokens" if draft
+                                       else "planes tokens == direct-cell tokens"))
+            same_as_one_slot(plabel, cfg, sparams, p_impl, reqs, got, draft)
         toks = torch.from_numpy(reqs[0]).to("cuda")[None]
         logits, _ = transformer.prefill(sparams, toks, transformer.build_specs(cfg),
                                         ModelCtx())
@@ -1177,7 +1399,42 @@ def phase_moe(device_name, launches) -> None:
             raise AssertionError(f"{label}: prefill logits {tuple(logits.shape)}")
         if (arch, policy, layers) == MOE_RUNS[0]:
             profile_tick(cfg, sparams, device_name)
+            profile_tick(cfg, sparams, device_name, "planes")
         del sparams
+        torch.cuda.empty_cache()
+
+
+def phase_archs(device_name, launches) -> None:
+    """The other dense archs at full width, cut in depth: qwen1.5-32b (QKV
+    bias) at 4 of 64 layers and nemotron-4-340b (squared ReLU, non-gated
+    FFN, 12 query heads a kv head) at 2 of 96 layers, under ternary, from
+    the port's seeded init packed block by block (a nemotron layer is ~7 GB
+    of bf16, its embedding and head ~9.4 GB each), on the serve CLI's
+    prompts: 4-slot tokens == 1-slot tokens, prefill logits finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.common import ModelCtx
+    for arch, policy, layers in DENSE_RUNS:
+        cfg = dataclasses.replace(get_config(arch), policy=policy, n_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        t0 = time.perf_counter()
+        sparams, train_b = transformer.init_for_serve(cfg, gen, "cuda")
+        torch.cuda.synchronize()
+        label = f"{arch} policy={policy} ({layers} of {get_config(arch).n_layers} layers)"
+        log(f"[archs] {label}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads of {cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.act_fn}, gated "
+            f"{cfg.gated_ffn}), qkv bias {cfg.qkv_bias}, vocab {cfg.vocab}; train "
+            f"layout {train_b / 2 ** 30:.2f} GiB, seeded init + pack block by block in "
+            f"{time.perf_counter() - t0:.1f}s")
+        reqs = prompts(cfg)
+        out = served(label, cfg, sparams, "popcount", reqs, device_name, launches)
+        same_as_one_slot(label, cfg, sparams, "popcount", reqs, out)
+        toks = torch.from_numpy(reqs[0]).to("cuda")[None]
+        logits, _ = transformer.prefill(sparams, toks, transformer.build_specs(cfg),
+                                        ModelCtx())
+        if logits.shape != (1, 1, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{label}: prefill logits {tuple(logits.shape)}")
+        del sparams, logits
         torch.cuda.empty_cache()
 
 
@@ -1298,6 +1555,7 @@ def main() -> int:
               ("kernels", lambda: phase_kernels(cfg, recs)),
               ("serve", lambda: launches.update(phase_serve(cfg, device_name))),
               ("moe", lambda: phase_moe(device_name, launches)),
+              ("archs", lambda: phase_archs(device_name, launches)),
               ("launches", phase_launches))
     for phase, fn in phases:
         t0 = time.perf_counter()

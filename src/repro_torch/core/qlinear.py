@@ -16,9 +16,16 @@ import torch
 
 from . import pack
 from .precision import LayerQuant
-from .quantize import int4_codes, int4_scale, int8_codes, int8_scale, ternarize
+from .quantize import (int4_codes, int4_scale, int8_codes, int8_scale, ternarize,
+                       ternary_cut)
 
 Params = dict[str, torch.Tensor]
+
+#: a ternary weight of more elements is cut, packed and scaled a block of
+#: rows at a time after its one whole-tensor cut: nemotron-4-340b's 18432 x
+#: 256000 head is 18.9 GB in f32, and the whole-tensor passes would hold
+#: five such copies at once, more than one 80 GB card
+TERNARY_ROW_BLOCK_ELEMS = 1 << 31
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,18 +71,17 @@ def pack_params(p: Params, spec: QLinearSpec) -> Params:
     one scalar shared by every expert of a stack. As in the reference, a
     ternary stack is cut at one threshold over the whole stack.
     """
-    w = p["w"].to(torch.float32)
     prec = spec.lq.weights.precision
     out: Params = {}
-    wt = w.transpose(-1, -2).contiguous()          # out, in (K last)
+    # out, in (K last), transposed before the f32 cast so that no f32 copy
+    # in the train layout is held beside it
+    wt = p["w"].transpose(-1, -2).contiguous().to(torch.float32)
     if prec == "binary":
         out["w_packed"] = pack.pack_binary(torch.sign(wt) + (wt == 0))
         out["w_scale"] = torch.abs(wt).mean(dim=-1)
     elif prec == "ternary":
-        q = ternarize(wt, spec.lq.weights.ternary_threshold)
-        out["w_mask"], out["w_sign"] = pack.pack_ternary(q)
-        nz = torch.abs(q).sum(dim=-1) + 1e-6
-        out["w_scale"] = (torch.abs(wt) * torch.abs(q)).sum(dim=-1) / nz
+        out["w_mask"], out["w_sign"], out["w_scale"] = _pack_ternary(
+            wt, spec.lq.weights.ternary_threshold)
     elif prec == "int4":
         s = int4_scale(wt, axis=-1)                # per out-channel, reduce in
         codes = int4_codes(wt, s)
@@ -84,6 +90,7 @@ def pack_params(p: Params, spec: QLinearSpec) -> Params:
             out["w_planes"] = pack.pack_planes(codes, pack.PLANE_BITS[prec])
         out["w_scale"] = s.squeeze(-1)
     elif prec == "int8":
+        w = p["w"].to(torch.float32)
         s = int8_scale(w, axis=(w.ndim - 2,))      # reduce in_dim
         codes = int8_codes(w, s)
         out["w_q"] = codes
@@ -92,12 +99,35 @@ def pack_params(p: Params, spec: QLinearSpec) -> Params:
                                                pack.PLANE_BITS[prec])
         out["w_scale"] = s.squeeze(w.ndim - 2)
     else:
-        out["w"] = w.to(torch.bfloat16)
+        out["w"] = p["w"].to(torch.bfloat16)
     if spec.lq.acts.precision == "int8":
-        out["a_scale"] = torch.tensor(0.05, dtype=torch.float32, device=w.device)
+        out["a_scale"] = torch.tensor(0.05, dtype=torch.float32, device=wt.device)
     if "b" in p:
         out["b"] = p["b"].to(torch.float32)
     return out
+
+
+def _pack_ternary(wt: torch.Tensor, threshold: float):
+    """(w_mask, w_sign, w_scale) of a ternary weight wt ((E,) out, in): one
+    cut over the whole stack, then per row the trits, their planes and the
+    scale mean(|w|) over the row's non-zero trits. Past
+    TERNARY_ROW_BLOCK_ELEMS elements the row-local part runs a block of rows
+    at a time (the same cut, the same per-row arithmetic)."""
+    cut = ternary_cut(wt, threshold)
+
+    def rows(w):
+        q = ternarize(w, cut=cut)
+        mask, sign = pack.pack_ternary(q)
+        nz = torch.abs(q).sum(dim=-1) + 1e-6
+        return mask, sign, (torch.abs(w) * torch.abs(q)).sum(dim=-1) / nz
+
+    if wt.numel() <= TERNARY_ROW_BLOCK_ELEMS:
+        return rows(wt)
+    flat = wt.reshape(-1, wt.shape[-1])
+    step = max(1, TERNARY_ROW_BLOCK_ELEMS // 8 // wt.shape[-1])
+    parts = [rows(flat[a:a + step]) for a in range(0, flat.shape[0], step)]
+    return tuple(torch.cat(leaf).reshape(wt.shape[:-1] + leaf[0].shape[1:])
+                 for leaf in zip(*parts))
 
 
 def _plane_twin(spec: QLinearSpec) -> bool:

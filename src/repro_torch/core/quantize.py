@@ -42,13 +42,20 @@ def _mean(x: torch.Tensor, axis) -> torch.Tensor:
     return row_mean(x)
 
 
-def ternarize(x: torch.Tensor, threshold: float = 0.05, axis=None) -> torch.Tensor:
+def ternary_cut(x: torch.Tensor, threshold: float = 0.05, axis=None) -> torch.Tensor:
+    """The cut of `ternarize`: t = threshold * mean(|x|) + 1e-8 over `axis`."""
+    return threshold * _mean(torch.abs(x), axis) + 1e-8
+
+
+def ternarize(x: torch.Tensor, threshold: float = 0.05, axis=None, *,
+              cut: torch.Tensor | None = None) -> torch.Tensor:
     """Symmetric-threshold ternarization: 0 where |x| <= t, else sign(x).
 
     `t = threshold * mean(|x|) + 1e-8` over `axis` (None => per tensor, as
     weight packing uses; the activation prep passes axis=-1 so each batched
-    row is cut on its own statistics)."""
-    t = threshold * _mean(torch.abs(x), axis) + 1e-8
+    row is cut on its own statistics), or `cut` when given (a block of rows
+    of a tensor cut as a whole)."""
+    t = ternary_cut(x, threshold, axis) if cut is None else cut
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return torch.where(x > t, one, torch.where(x < -t, -one, 0 * one))
 

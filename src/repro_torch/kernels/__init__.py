@@ -2,7 +2,8 @@
 counterpart of `repro.kernels`.
 
 harness    — the output-stationary packed GEMM template (csrc/gemm.cu), its
-             fused requant epilogue, and the grouped launch (K11)
+             fused requant epilogue, and the grouped launch (K11, and K10
+             over expert stacks)
 i8gemm     — int8 x int8 body (__dp4a)
 bgemm      — binary bodies: XNOR+popcount, and ±1 unpack + int8 dot (mxu)
 tgemm      — ternary bodies: gated XNOR, trit unpack + int8 dot (mxu), and
@@ -29,6 +30,7 @@ BODIES = (i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT,
 KERNELS = {
     **{body.name: body.kernel for body in BODIES},
     "gemm_grouped": harness.GEMM_GROUPED,
+    "gemm_grouped_planes": harness.GEMM_GROUPED_PLANES,
     "paged_flash_decode": paged_attn.PAGED_DECODE,
     "flash_attention": flash_attn.FLASH_ATTN,
 }

@@ -3,9 +3,9 @@
 //
 // Replaces the TPU kernels `repro/kernels/harness.py` `gemm` + `_kernel`
 // (one pallas_call skeleton) with nine of its MacBodies, and `gemm_grouped`
-// (the same call vmapped over a leading group axis, K11) through a second
-// entry point, `repro_gemm_grouped`, over the bodies below except the two
-// plane bodies:
+// (the same call vmapped over a leading group axis: K11, and K10 over expert
+// stacks for the plane bodies) through a second entry point,
+// `repro_gemm_grouped`, over every body below:
 //   BODY_I8            `repro/kernels/i8gemm.py` `_i8_step`        (I8_DOT)
 //   BODY_BINARY        `repro/kernels/bgemm.py`  `_popcount_step`  (BINARY_POPCOUNT)
 //   BODY_TERNARY       `repro/kernels/tgemm.py`  `_popcount_step`  (TERNARY_POPCOUNT)
@@ -76,14 +76,19 @@
 // - Grouped (K11, `repro_gemm_grouped`: G GEMMs of one shape in one
 //   launch, every operand with a leading G axis: x (G, M, .), w (G, N, .)
 //   or (G, K, N), w_scale and bias (G, N), a_scale (G, M), out (G, M, N)),
-//   the int8 and s4 bodies run i8_mma_kernel / s4_mma_kernel at every M
-//   with blockIdx.z over the groups, on a 16-row tile (BN = 128) up to
-//   G_SMALL_M = 16 rows and the 128-row one above. The MoE expert
-//   projections are G = E weight stacks at decode M = slots x capacity (16
-//   for 4 slots): the weight bytes of all experts bound them.
+//   the int8, s4 and plane bodies run i8_mma_kernel / s4_mma_kernel /
+//   planes_mma_kernel at every M with blockIdx.z over the groups, on a
+//   16-row tile (BN = 128) up to G_SMALL_M = 16 rows and the 128-row one
+//   above. The MoE expert projections are G = E weight stacks at decode M =
+//   slots x capacity (16 for 4 slots): the weight bytes of all experts bound
+//   them. A plane stack (G, P, N, K/32) may be the leading-P slice of a
+//   (G, BITS, N, K/32) stack (the self-speculative draft's truncation): the
+//   kernel takes P, the plane stride and the member stride, so it reads the
+//   P live planes of each expert in place and the planes past P never.
 // - gemm_kernel runs the other grouped bodies: popcount (K3, K4), mxu (K7)
-//   and wt-i8a (K8). No MoE configuration the port serves sends them to K11
-//   (w-ternary experts are weight-only), so it stays the TPU grid with its
+//   and wt-i8a (K8). MoE archs served under --policy binary, ternary, mixed
+//   or wt-a8, or with --impl mxu, send every expert projection there. It is
+//   still the first version, the TPU grid with its
 //   sequential K axis turned into a loop inside the block: a block owns one
 //   BM x BN output tile, walks K in KT-word stages through shared memory
 //   (KT packed words = 1024 k for the popcount bodies, KT four-code words =
@@ -93,8 +98,8 @@
 //   columns past N are masked, so ragged M and N need no padding (the
 //   Pallas path pads M to 8); the grid's third dimension is the groups. It
 //   neither pipelines its loads (32-word stages, two barriers each) nor
-//   uses the tensor cores: a grouped binary, ternary, mxu or wt-i8a call is
-//   not on any served path.
+//   uses the tensor cores: its redesign for those MoE expert projections is
+//   queued work.
 //
 // Exactness. The epilogue keeps the reference's order exactly and uses
 // __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA, and rounds
@@ -1548,8 +1553,8 @@ __device__ __forceinline__ void mma_tile(const TcArgs& a) {
       }
 }
 
-// one kernel name per body, so that its SASS can be checked on its own; K1
-// and K9 take a group index (K11) and a row tile
+// one kernel name per body, so that its SASS can be checked on its own; K1,
+// K9 and K10 take a group index (K11, K10 over expert stacks) and a row tile
 template <int BM>
 __global__ void __launch_bounds__(Tc<WK_I8, BM>::THREADS, 512 / Tc<WK_I8, BM>::THREADS)
 i8_mma_kernel(TcArgs a) {
@@ -1560,9 +1565,13 @@ __global__ void __launch_bounds__(Tc<WK_S4, BM>::THREADS, 512 / Tc<WK_S4, BM>::T
 s4_mma_kernel(TcArgs a) {
   mma_tile<WK_S4, BM>(group_member(a));
 }
-template <int BITS>
-__global__ void __launch_bounds__(T_THREADS, 2) planes_mma_kernel(TcArgs a) {
-  mma_tile<BITS == 4 ? WK_PLANES4 : WK_PLANES8, T_BM>(a);
+// K10, and K10 over expert stacks: a row tile and a group index as K11's
+template <int BITS> __host__ __device__ constexpr int planes_wk() { return BITS == 4 ? WK_PLANES4 : WK_PLANES8; }
+template <int BITS, int BM>
+__global__ void __launch_bounds__(Tc<planes_wk<BITS>(), BM>::THREADS,
+                                  512 / Tc<planes_wk<BITS>(), BM>::THREADS)
+planes_mma_kernel(TcArgs a) {
+  mma_tile<planes_wk<BITS>(), BM>(group_member(a));
 }
 __global__ void __launch_bounds__(T_THREADS, 2) bmxu_mma_kernel(TcArgs a) {
   mma_tile<WK_BITS, T_BM>(a);
@@ -1811,8 +1820,35 @@ int launch_planes(const void* x0, const void* w0, const float* w_scale,
   a.pstride = pstride;
   a.xvec = 1;
   a.wvec = vec;
-  return launch_mma<BITS == 4 ? WK_PLANES4 : WK_PLANES8, T_BM>(planes_mma_kernel<BITS>,
-                                                                a, 1, stream);
+  return launch_mma<planes_wk<BITS>(), T_BM>(planes_mma_kernel<BITS, T_BM>, a, 1, stream);
+}
+
+// K10 over expert stacks: `groups` plane GEMMs of one shape in one launch of
+// the plane tile, blockIdx.z the member, np live planes pstride words apart
+// and the members xg / wg bytes apart (a truncated stack read in place). The
+// tile's row choice is K11's: 16 rows up to G_SMALL_M, 128 above.
+template <int BITS>
+int launch_grouped_planes(int groups, const void* x0, const void* w0,
+                          const float* w_scale, const float* a_scale, const float* bias,
+                          void* out, int out_acc, int M, int N, int K, int np,
+                          long long pstride, long long xg, long long wg,
+                          cudaStream_t stream) {
+  const auto xa = reinterpret_cast<uintptr_t>(x0), wa = reinterpret_cast<uintptr_t>(w0);
+  if (np < 1 || np > BITS || K % 32 || pstride < (long long)N * (K / 32))
+    return (int)cudaErrorInvalidValue;
+  // the activation rows are cp.async'd 16 bytes at a time, as ungrouped
+  if (xa % 16 || xg % 16 || wa % 4 || wg % 4) return (int)cudaErrorMisalignedAddress;
+  TcArgs a = tc_args(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.np = np;
+  a.pstride = pstride;
+  a.xg = xg;
+  a.wg = wg;
+  a.xvec = 1;
+  a.wvec = K % 128 == 0 && pstride % 4 == 0 && wa % 16 == 0 && wg % 16 == 0;
+  constexpr int WK = planes_wk<BITS>();
+  return M <= G_SMALL_M
+             ? launch_mma<WK, 16>(planes_mma_kernel<BITS, 16>, a, groups, stream)
+             : launch_mma<WK, T_BM>(planes_mma_kernel<BITS, T_BM>, a, groups, stream);
 }
 
 // words from a to b (two int32 operands, so a multiple of 4 bytes apart)
@@ -2165,24 +2201,33 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
   }
 }
 
-// K11: `groups` GEMMs of one (M, N, K) shape in one launch. Every operand is
-// contiguous with a leading group axis: x0/x1 and w0/w1 advance by
-// x_group_words / w_group_words 32-bit words from one group to the next,
-// w_scale and bias by N floats, a_scale by M floats, out by M * N elements.
-// The int8 and s4 bodies run the tensor-core tile, the others gemm_kernel;
-// the plane bodies are refused.
+// K11: `groups` GEMMs of one (M, N, K) shape in one launch. Every operand
+// has a leading group axis: x0/x1 and w0/w1 advance by x_group_words /
+// w_group_words 32-bit words from one group to the next, w_scale and bias
+// by N floats, a_scale by M floats, out by M * N elements. w_planes /
+// w_plane_stride: the live planes P of a plane-stacked weight (G, P, N,
+// K/32) and the words between two planes of a member (ignored by the other
+// bodies); the member stride may exceed P planes (a leading-P slice of a
+// deeper stack). The int8, s4 and plane bodies run the tensor-core tile, the
+// others gemm_kernel.
 extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
                                   const void* x1, const void* w0,
                                   const void* w1, const float* w_scale,
                                   const float* a_scale, const float* bias,
                                   void* out, int out_acc, int M, int N, int K,
                                   long long x_group_words,
-                                  long long w_group_words,
+                                  long long w_group_words, int w_planes,
+                                  long long w_plane_stride,
                                   cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || groups <= 0 || groups > 65535)
     return (int)cudaErrorInvalidValue;
-  if (body == BODY_PLANES_W4 || body == BODY_PLANES_W8)
-    return (int)cudaErrorInvalidValue;
+  if (body == BODY_PLANES_W4 || body == BODY_PLANES_W8) {
+    if (w_group_words < (long long)w_planes * w_plane_stride)
+      return (int)cudaErrorInvalidValue;
+    return (body == BODY_PLANES_W4 ? launch_grouped_planes<4> : launch_grouped_planes<8>)(
+        groups, x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K, w_planes,
+        w_plane_stride, 4 * x_group_words, 4 * w_group_words, stream);
+  }
   if (body == BODY_I8 || body == BODY_INT4_W_I8A)
     return launch_grouped_tc(body, groups, x0, w0, w_scale, a_scale, bias, out, out_acc,
                              M, N, K, 4 * x_group_words, 4 * w_group_words, stream);

@@ -45,7 +45,9 @@
 // for the served archs (llama3.2-3b G = 3, deepseek-moe-16b G = 1,
 // phi3.5-moe G = 4, all dh = 128) and the reduced / test shapes (dh 32 and
 // 64); any other G <= 8, dh <= 256 (dh % 32 == 0) runs the generic
-// instantiation of the same kernel, whose arrays are sized to 8 x 8.
+// instantiation of the same kernel, whose arrays are sized to 8 x 8, and G =
+// G_WIDE = 12 (nemotron-4-340b: 96 query heads over 8 kv heads, dh 192) an
+// instantiation of its own with 12 heads in registers and the dh generic.
 //
 // Bound. Decode attention reads each live K/V byte once and does ~4 flops
 // per byte: bytes bound it, ~2 MB a layer at the serve path's 4 slots
@@ -67,7 +69,8 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 64;  // tokens a block; the wrapper's paged_attn.CHUNK
-constexpr int MAXG = 8;    // query heads per kv head
+constexpr int MAXG = 8;    // query heads per kv head (the generic kernel)
+constexpr int G_WIDE = 12; // ... and the one wider group served
 constexpr int MAXD = 8;    // head-dim elements per lane
 constexpr int MAXDH = 256;
 constexpr float NEG_INF = -1e30f;
@@ -415,6 +418,7 @@ int launch_for(const Args& a, cudaStream_t stream) {
   SHAPE(1, 32)    // reduced deepseek-moe-16b
   SHAPE(1, 64)
 #undef SHAPE
+  if (G == G_WIDE) return launch<QT, KVT, G_WIDE, 0>(a, stream);   // nemotron-4-340b
   return launch<QT, KVT, 0, 0>(a, stream);
 }
 
@@ -436,7 +440,7 @@ extern "C" int repro_paged_decode(int q_dtype, int kv_dtype, const void* q,
                                   int* cnt, long long cnt_ints, float* part,
                                   long long part_floats, cudaStream_t stream) {
   if (B <= 0 || B > 65535 || hk <= 0 || hk > 65535 || page_size <= 0 || max_pages <= 0 ||
-      hq % hk || hq / hk > MAXG || dh % 32 || dh > MAXDH)
+      hq % hk || (hq / hk > MAXG && hq / hk != G_WIDE) || dh % 32 || dh > MAXDH)
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(k_pool) % 16 || reinterpret_cast<uintptr_t>(v_pool) % 16)
     return (int)cudaErrorMisalignedAddress;

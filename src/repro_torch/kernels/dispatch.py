@@ -26,10 +26,10 @@ cells, the plane-composed int4/int8 x int8 cells (`impl="planes"`, with
 dense cells. An expert-stacked layer (`spec.experts = E`, every weight
 leaf with a leading E) runs as the reference's vmap over the experts does:
 one prep over all (E·M, K) rows, then for a weight-and-activation cell ONE
-`harness.gemm_grouped` launch (K11) over the E weight stacks, and for a
-weight-only or dense cell one batched torch product. Not ported: tensor
-and expert parallelism, and plane cells on expert stacks. There is no tune
-table: the CUDA tile is
+`harness.gemm_grouped` launch (K11; for a plane cell K10 over the expert
+stacks, a truncated stack read in place) over the E weight stacks, and for
+a weight-only or dense cell one batched torch product. Not ported: tensor
+and expert parallelism. There is no tune table: the CUDA tile is
 compile-time (`harness.Tile`), and the reference's `tune_cpu.json` holds
 interpret-mode CPU picks that say nothing about the card.
 """
@@ -329,16 +329,16 @@ def _qgemm_experts(cell: GemmCell, op: OperatingPoint, p: dict,
     Every prep is row-local (the binary/ternary per-row means, the int8
     constant scale), so one prep over the (E·M, K) rows gives each expert
     the operands its own call would. A weight-and-activation cell then
-    runs ONE grouped launch (K11) over the E stacks; a weight-only or dense
-    cell one batched product, each expert's slab padded to ROW_QUANTUM rows
-    so that its rows do not depend on how many came with them."""
+    runs ONE grouped launch (K11) over the E stacks; a plane cell's
+    `OperatingPoint.planes` truncation is the (E, P, N, K/32) view
+    `w_planes[:, :P]`, which that launch reads in place (no copy of the
+    live planes). A weight-only or dense cell runs one batched product,
+    each expert's slab padded to ROW_QUANTUM rows so that its rows do not
+    depend on how many came with them."""
     e, k, n = spec.experts, spec.in_dim, spec.out_dim
     if x.shape[0] != e:
         raise ValueError(f"{spec.name!r}: activations {tuple(x.shape)} need a "
                          f"leading expert axis of {e}")
-    if "w_planes" in cell.weight_names:
-        raise NotImplementedError(f"{cell.op.tag} on an expert stack is not yet "
-                                  f"ported (plane-stacked expert weights)")
     lead = x.shape[1:-1]
     x2d = x.reshape(-1, k)
     m = x2d.shape[0] // e

@@ -8,8 +8,9 @@ algebra with torch ops. `gemm` launches the kernel for CUDA tensors and runs
 the plain version for CPU tensors; it never falls back from one to the
 other. `gemm_grouped` (K11) runs G GEMMs of one shape, every operand
 carrying a leading group axis, as ONE launch (`repro_gemm_grouped`, counted
-by `GEMM_GROUPED`): the int8 and s4 bodies on the tensor-core tile, the
-others on the template.
+by `GEMM_GROUPED`, or by `GEMM_GROUPED_PLANES` for the plane bodies, K10
+over expert stacks): the int8, s4 and plane bodies on the tensor-core
+tile, the others on the template.
 """
 from __future__ import annotations
 
@@ -52,11 +53,14 @@ def _workspace(dev: torch.device, stream: int) -> torch.Tensor:
     return ws
 
 
+_GROUPED_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                 _I, _L]
 #: the grouped launcher (K11, `repro_gemm_grouped`): one count over every
-#: body it runs, so that a run tells grouped launches from ungrouped ones
-GEMM_GROUPED = Kernel("gemm", "repro_gemm_grouped",
-                      [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _L, _L])
+#: body it runs but the plane bodies, so that a run tells grouped launches
+#: from ungrouped ones
+GEMM_GROUPED = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
+#: the same launcher's count for the plane bodies (K10 over expert stacks)
+GEMM_GROUPED_PLANES = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,24 +218,24 @@ def gemm_grouped(body: MacBody, x_ops: Sequence[torch.Tensor],
     """K11: `gemm` over a leading group axis G, in one launch on the card.
 
     Every operand carries the same leading G: x_ops (G, M, K/xk_per_q);
-    w_ops (G, N, K/wk_per_q), or (G, K, N) when body.w_kmajor; w_scale
-    (G, N), a_scale (G, M), bias (G, N) f32 or None -> (G, M, N) bf16, or
-    the raw (G, M, N) int32 dot with out="acc". Member g is exactly
-    `gemm(body, x_ops[:, g], ...)`: the reference's `gemm_grouped` is that
-    call under `jax.vmap`. On CPU tensors the body's plain version runs once
-    per member, then `requant`; on CUDA tensors one `repro_gemm_grouped`
-    launch runs every member (its grid's third dimension), never a loop of
-    `gemm` launches. The plane bodies (K10) are not yet ported here."""
+    w_ops (G, N, K/wk_per_q), or (G, K, N) when body.w_kmajor, or for a
+    plane body (K10 over expert stacks) (G, P, N, K/32): a contiguous
+    stack, or its leading-P slice `stack[:, :P]` (the draft's truncation),
+    read in place; w_scale (G, N), a_scale (G, M), bias (G, N) f32 or None
+    -> (G, M, N) bf16, or the raw (G, M, N) int32 dot with out="acc".
+    Member g is exactly `gemm(body, x_ops[:, g], ...)`: the reference's
+    `gemm_grouped` is that call under `jax.vmap`. On CPU tensors the body's
+    plain version runs once per member, then `requant`; on CUDA tensors one
+    `repro_gemm_grouped` launch runs every member (its grid's third
+    dimension), never a loop of `gemm` launches."""
     if out not in ("requant", "acc"):
         raise ValueError(f"out={out!r}")
-    if body.w_stack:
-        raise NotImplementedError(f"{body.name}: a grouped GEMM of plane-stacked "
-                                  f"weights is not yet ported")
     if out == "requant" and (w_scale is None or a_scale is None):
         raise ValueError("requant needs w_scale and a_scale")
     g = x_ops[0].shape[0] if x_ops[0].ndim == 3 else 0
-    if g < 1 or any(t.ndim != 3 or t.shape[0] != g
-                    for t in list(x_ops) + list(w_ops)):
+    w_ndim = 4 if body.w_stack else 3
+    if g < 1 or any(t.ndim != nd or t.shape[0] != g
+                    for nd, ts in ((3, x_ops), (w_ndim, w_ops)) for t in ts):
         raise ValueError(f"{body.name}: grouped operands need one leading group "
                          f"axis G >= 1, got {[tuple(t.shape) for t in x_ops]} x "
                          f"{[tuple(t.shape) for t in w_ops]}")
@@ -259,10 +263,14 @@ def gemm_grouped(body: MacBody, x_ops: Sequence[torch.Tensor],
     def words(t):        # 32-bit words from one group member to the next
         return t.stride(0) * t.element_size() // 4
 
-    GEMM_GROUPED(body.body_id, g, *_ptrs(body, x_ops, w_ops),
-                 *(_ptr(t) if rq else None for t in (w_scale, a_scale, bias)),
-                 y.data_ptr(), int(not rq), m, n, k, words(x_ops[0]),
-                 words(w_ops[0]))
+    # a plane stack: its live planes and the words from one plane to the next
+    w0 = w_ops[0]
+    planes, stride = (w0.shape[1], w0.stride(1)) if body.w_stack else (1, 0)
+    launcher = GEMM_GROUPED_PLANES if body.w_stack else GEMM_GROUPED
+    launcher(body.body_id, g, *_ptrs(body, x_ops, w_ops),
+             *(_ptr(t) if rq else None for t in (w_scale, a_scale, bias)),
+             y.data_ptr(), int(not rq), m, n, k, words(x_ops[0]), words(w0),
+             planes, stride)
     return y
 
 
@@ -277,18 +285,33 @@ def _ptrs(body: MacBody, x_ops, w_ops):
             w_ops[0].data_ptr(), _ptr(w_ops[1]) if body.n_w > 1 else None)
 
 
+def _plane_slice(body: MacBody, t: torch.Tensor) -> bool:
+    """t is the leading-P slice `stack[:, :P]` of a contiguous (G,
+    w_stack, N, K/32) plane stack: the one non-contiguous layout the grouped
+    plane launch reads in place (member stride w_stack planes, plane stride
+    N * K/32 words)."""
+    if not body.w_stack or t.ndim != 4:
+        return False
+    _, _, n, kw = t.shape
+    member = body.w_stack * n * kw
+    return (t.stride() == (member, n * kw, kw, 1)
+            and t.storage_offset() % member == 0)     # from plane 0 of a member
+
+
 def _check_cuda(body: MacBody, x_ops, w_ops, scales, n: int) -> None:
-    """What the CUDA kernel takes: contiguous operands on the card, int8
-    codes or int32 words as the body's sides store them, f32 scales and
-    bias (None entries are skipped), N % 4 == 0 for K-major weights, and
-    int8 activations against bit-plane weight words (K8, K10) starting
-    16-byte aligned: their kernels load the rows 16 bytes at a time."""
+    """What the CUDA kernel takes: contiguous operands on the card (a
+    grouped plane stack may also be a leading-P slice of a full one,
+    `_plane_slice`), int8 codes or int32 words as the body's sides store
+    them, f32 scales and bias (None entries are skipped), N % 4 == 0 for
+    K-major weights, and int8 activations against bit-plane weight words
+    (K8, K10) starting 16-byte aligned, every group member's rows too:
+    their kernels load the rows 16 bytes at a time."""
     dev = x_ops[0].device
     if dev.type != "cuda":
         raise ValueError(f"gemm: unsupported device {dev}")
     scales = [t for t in scales if t is not None]
     for t in list(x_ops) + list(w_ops) + scales:
-        if t.device != dev or not t.is_contiguous():
+        if t.device != dev or not (t.is_contiguous() or _plane_slice(body, t)):
             raise ValueError(f"{body.name}: every operand must be a contiguous "
                              f"tensor on {dev}")
     for t in scales:
@@ -300,6 +323,9 @@ def _check_cuda(body: MacBody, x_ops, w_ops, scales, n: int) -> None:
                          f"{_dtype(body.xk)}, weight operands {_dtype(body.wk)}")
     if body.w_kmajor and n % 4:
         raise ValueError(f"{body.name}: K-major int8 weights need N % 4 == 0")
-    if body.xk == 1 and body.wk == 32 and x_ops[0].data_ptr() % 16:
+    x = x_ops[0]
+    if body.xk == 1 and body.wk == 32 and (x.data_ptr() % 16
+                                           or x.ndim == 3 and x.stride(0) % 16):
         raise ValueError(f"{body.name}: int8 activation rows must start 16-byte "
-                         f"aligned (an aligned storage offset)")
+                         f"aligned (an aligned storage offset, and whole 16-byte "
+                         f"runs from one group member to the next)")

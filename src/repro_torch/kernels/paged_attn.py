@@ -110,9 +110,9 @@ def paged_flash_decode(q, k_pool, v_pool, pages, pos, *, kv_scale: float = 0.05)
             or pages.dtype != torch.int32 or pos.dtype != torch.int32):
         raise ValueError("paged_flash_decode: q f32/bf16, pools in q's dtype "
                          "or int8, pages/pos int32")
-    if dh % 32 or dh > 256 or hq // hk > 8:
+    if dh % 32 or dh > 256 or (hq // hk > 8 and hq // hk != 12):
         raise ValueError(f"paged_flash_decode: needs dh % 32 == 0, dh <= 256 "
-                         f"and <= 8 query heads per kv head (dh={dh}, "
+                         f"and <= 8 or 12 query heads per kv head (dh={dh}, "
                          f"G={hq // hk})")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_flash_decode: the pools must start 16-byte "

@@ -8,18 +8,23 @@ a paged KV cache.
     PYTHONPATH=src python -m repro_torch.launch.serve --policy w4a8 --impl planes
     PYTHONPATH=src python -m repro_torch.launch.serve --policy int8 --spec-draft planes:1 --spec-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --policy het
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --policy het \
+        --spec-draft planes:1 --spec-k 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-32b --reduced --device cpu
 
-Every single-device precision policy of `core.precision.POLICIES` is
-served, with the binary/ternary GEMMs in either formulation (`--impl
+The full-attention decoders are served: llama3.2-3b (the default),
+qwen1.5-32b (QKV bias), nemotron-4-340b (squared ReLU, non-gated FFN) and
+the MoE archs deepseek-moe-16b and phi3.5-moe-42b-a6.6b. Every
+single-device precision policy of `core.precision.POLICIES` is served,
+with the binary/ternary GEMMs in either formulation (`--impl
 popcount|mxu`), the int4/int8 x int8 layers as stacked binary planes
 (`--impl planes`), and self-speculative decoding (`--spec-draft
-planes[:DEPTH] --spec-k K`); prompts of any length up to `cache_len`.
-The MoE archs (deepseek-moe-16b, phi3.5-moe-42b-a6.6b) are served under
-every policy and `--impl popcount|mxu`, their weight-and-activation expert
-projections as one grouped GEMM launch each (K11), with the reference's
-routing counters in `Server.stats` (`moe_routed`, `moe_dropped`,
-`moe_expert_tokens`); `--impl planes` and `--spec-draft` on an MoE arch
-are not yet ported.
+planes[:DEPTH] --spec-k K`); prompts of any length up to `cache_len`. An
+MoE arch runs its weight-and-activation expert projections as one grouped
+GEMM launch each (K11; under `--impl planes` and in the draft, K10 over the
+expert stacks), with the reference's routing counters in `Server.stats`
+(`moe_routed`, `moe_dropped`, `moe_expert_tokens`; a speculative tick
+counts its verify step's rows and not the draft's).
 
 What runs, as in the reference:
   * a fixed `slots` decode batch fed from a request FIFO; admission is
@@ -45,7 +50,9 @@ What runs, as in the reference:
     decode (`_spec_step`)
   * for an MoE arch, every prefill and decode call's routing counters are
     summed into `stats`; a decode tick routes (and counts) its idle rows
-    too, as the reference's does
+    too, as the reference's does; a speculative tick counts its verify
+    step (every window row) and drops the draft's counters, since the
+    verify step routes the same positions again
 
 Not yet ported (asking for one raises): prefix sharing and copy-on-write,
 preemption and swap, chunked prefill, mesh serving, the contiguous-slab
@@ -133,14 +140,11 @@ class Server:
         self.slot_pos = np.zeros(slots, np.int32)
         self.queue: list[Request] = []
         self.completed: list[Request] = []
+        self.pos_trace: list[np.ndarray] = []   # per-tick active-slot positions
         self.stats = {"prefills": 0, "decode_ticks": 0, "peak_pages": 0,
                       "spec_ticks": 0, "spec_proposed": 0, "spec_accepted": 0,
                       "spec_emitted": 0}
         if cfg.n_experts:
-            if spec_draft or self.ctx.impl == "planes":
-                raise NotImplementedError(
-                    f"{cfg.name}: --spec-draft and --impl planes on an MoE arch "
-                    f"are not yet ported to repro_torch")
             # routing telemetry: prefill/decode return the counters too.
             # moe_routed: top-k assignments (kept + dropped);
             # moe_expert_tokens[e]: the assignments expert e served
@@ -191,14 +195,19 @@ class Server:
 
     # -- routing counters --------------------------------------------------------
 
-    def _pop_moe(self, res):
+    def _pop_moe(self, res, count: bool = True):
         """Strip the routing counters off a serve entry point's result under
-        ctx.moe_stats and add them to `stats`; no-op otherwise. (The
-        reference queues them for a later drain, to keep its dispatch-ahead
-        overlap; this server syncs on every tick's sampling anyway.)"""
+        ctx.moe_stats and add them to `stats`; no-op otherwise. `count=False`
+        drops them instead: the speculative draft routes the positions that
+        its verify step routes again, and counting both would book them
+        twice. (The reference queues them for a later drain, to keep its
+        dispatch-ahead overlap; this server syncs on every tick's sampling
+        anyway.)"""
         if not self.ctx.moe_stats:
             return res
         *rest, st = res
+        if not count:
+            return tuple(rest)
         et = st["expert_tokens"].cpu().numpy()
         dropped = int(st["dropped"])
         self.stats["moe_dropped"] += dropped
@@ -359,6 +368,7 @@ class Server:
                                        self.pt.usable_pages - self.pt.free_pages)
         active = sorted(keff)
         if active:
+            self.pos_trace.append(self.slot_pos[active].copy())
             self._spec_tick(active, keff)
         self._retire()   # cuts a mid-window EOS before retiring
         return bool(self.queue or any(r is not None for r in self.slot_req))
@@ -381,10 +391,11 @@ class Server:
             for s in live:
                 tokens[s, 0] = cur[s]
                 pos[s] = base[s] + j
-            dlogits, self.cache = transformer.decode_step(
+            dlogits, self.cache = self._pop_moe(transformer.decode_step(
                 self.params, self.cache, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(pos).to(dev), self.sp, self.draft_ctx,
-                pages=torch.from_numpy(self._masked_table(live)).to(dev))
+                pages=torch.from_numpy(self._masked_table(live)).to(dev)),
+                count=False)   # the verify step routes these positions again
             picks = self._pick(dlogits, {s: reqs[s] for s in live}, first=j)
             for s in live:
                 drafts[s].append(int(picks[s, 0]))
@@ -400,10 +411,10 @@ class Server:
             pos0[s] = base[s]
             nreal[s] = keff[s]
         tab = torch.from_numpy(table).to(dev)
-        vlogits, self.cache = transformer.decode_verify(
+        vlogits, self.cache = self._pop_moe(transformer.decode_verify(
             self.params, self.cache, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(pos0).to(dev), self.sp, self.ctx, read_pages=tab,
-            write_pages=tab, nreal=torch.from_numpy(nreal).to(dev))
+            write_pages=tab, nreal=torch.from_numpy(nreal).to(dev)))
         picks = self._pick(vlogits, reqs)
         self.stats["spec_ticks"] += 1
         for s in active:
@@ -436,6 +447,7 @@ class Server:
                                        self.pt.usable_pages - self.pt.free_pages)
         active = [s for s, r in enumerate(self.slot_req) if r is not None]
         if active:
+            self.pos_trace.append(self.slot_pos[active].copy())
             reqs = [self.slot_req[s] for s in active]
             tokens = np.zeros((self.slots, 1), np.int32)
             pos = np.zeros(self.slots, np.int32)
@@ -480,8 +492,9 @@ _NOT_PORTED = ("prefix_share", "preempt", "chunk_tokens", "mesh",
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama3.2-3b",
-                    help="llama3.2-3b (default), or an MoE arch: "
-                         "deepseek-moe-16b, phi3.5-moe-42b-a6.6b")
+                    help="llama3.2-3b (default), qwen1.5-32b, nemotron-4-340b, "
+                         "or an MoE arch: deepseek-moe-16b, "
+                         "phi3.5-moe-42b-a6.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -536,9 +549,6 @@ def main(argv=None):
         flags = ", ".join("--" + f.replace("_", "-") for f in asked)
         raise SystemExit(f"{flags}: not yet ported to repro_torch")
     cfg = get_config(args.arch)
-    if cfg.n_experts and (args.spec_draft or args.impl == "planes"):
-        raise SystemExit(f"--spec-draft / --impl planes on the MoE arch "
-                         f"{cfg.name}: not yet ported to repro_torch")
     device = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced()

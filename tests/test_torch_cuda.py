@@ -29,9 +29,15 @@ decoding's tokens, and a verify row's logits are bit-equal to the
 sequential decode step's at the same position. The grouped GEMM (K11) is
 bit-equal to its plain version and to G separate ungrouped launches for
 every body it serves, in one launch (the int8 and s4 bodies on both of
-their row tiles, at G up to 64); a reduced MoE arch served through it
-gives a 4-slot server the tokens of a 1-slot server, and launches it once
-per expert projection per forward call.
+their row tiles, at G up to 64), and so is K10 over expert stacks (the
+plane bodies grouped, at P = 1 and bits live planes, M = 4, 16 and 128,
+and at P = bits equal to K11's int4 / int8 body on the composed codes),
+which reads a truncated stack `stack[:, :P]` in place, allocating no copy;
+a reduced MoE arch served through it gives a 4-slot server the tokens of a
+1-slot server, and launches it once per expert projection per forward
+call; under `--impl planes` (K10 over the expert stacks) its tokens equal
+the direct cells', and self-speculative decoding gives sequential
+decoding's tokens.
 """
 import dataclasses
 
@@ -324,6 +330,17 @@ def test_paged_kernel_heads_and_dims(cuda, dtype, int8, tol, g, dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,int8,tol", _PAGED_DTYPES, ids=_PAGED_IDS)
+@pytest.mark.parametrize("dh", [128, 192])
+def test_paged_kernel_wide_group(cuda, dtype, int8, tol, dh):
+    """G = 12 query heads a kv head (nemotron-4-340b: 96 over 8, dh 192),
+    its own instantiation."""
+    rng = np.random.default_rng(dh)
+    args = _paged_args(rng, dtype, int8, 24, 2, dh, [0, 77, 160, 255], 8)
+    _paged_vs_plain(cuda, args, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8,tol", _PAGED_DTYPES, ids=_PAGED_IDS)
 def test_paged_kernel_long_context(cuda, dtype, int8, tol):
     """A 2048-token cache (64 pages of 32): up to 32 chunks merged a row."""
     rng = np.random.default_rng(7)
@@ -426,25 +443,127 @@ def test_grouped_tc_bodies_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k,
     _check_grouped(cuda, body, g, m, k, n)
 
 
-def _reduced_moe_serve(cuda, arch, policy, slots, lens=(3, 9, 14, 5, 30, 1)):
+def _grouped_planes(g, m, k, n, bits, gen):
+    """Operands of a grouped plane GEMM: int8 activations (g, m, k), a full
+    (g, bits, n, k/32) plane stack with every bit pattern, scales and bias."""
+    x = torch.randint(-127, 128, (g, m, k), dtype=torch.int8, generator=gen)
+    stack = torch.randint(-2 ** 31, 2 ** 31 - 1, (g, bits, n, k // 32),
+                          dtype=torch.int32, generator=gen)
+    return (x, stack, torch.rand(g, n, generator=gen) * 0.1 + 1e-3,
+            torch.rand(g, m, generator=gen) + 0.1, torch.randn(g, n, generator=gen))
+
+
+#: K10 over expert stacks on both row tiles: a 1-slot and a 4-slot decode
+#: slab and a prefill slab, G = 3 and 64, N ragged, K a multiple of the
+#: 128-k stage (16-byte weight loads) or not (4-byte loads)
+_GROUPED_PLANES = [(3, 4, 256, 100), (3, 16, 1056, 96), (64, 16, 512, 72),
+                   (3, 128, 512, 200), (2, 33, 1024, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k,n", _GROUPED_PLANES)
+@pytest.mark.parametrize("body,direct", [(pgemm.PLANES_W4_I8A, i4gemm.INT4_W_I8A),
+                                         (pgemm.PLANES_W8_I8A, i8gemm.I8_DOT)],
+                         ids=lambda b: b.name)
+def test_grouped_plane_kernel_bit_equal_to_plain_ungrouped_and_direct(
+        cuda, body, direct, g, m, k, n):
+    """One grouped plane launch == its plain version == g ungrouped K10
+    launches, at P = 1 and bits (a view of the full stack), int32
+    accumulator and bf16 output with bias on and off; at P = bits == K11's
+    direct body on the composed codes."""
+    bits = body.w_stack
+    gen = torch.Generator().manual_seed(g * 1000 + m + n + bits)
+    x, stack, ws, as_, b = _grouped_planes(g, m, k, n, bits, gen)
+    xd, sd = x.to(cuda), stack.to(cuda)
+    for p in (1, bits):
+        w, wd = stack[:, :p], sd[:, :p]
+        before = harness.GEMM_GROUPED_PLANES.launches
+        acc = harness.gemm_grouped(body, (xd,), (wd,), None, None, k=k, out="acc")
+        assert harness.GEMM_GROUPED_PLANES.launches == before + 1
+        assert torch.equal(acc.cpu(), harness.gemm_grouped(body, (x,), (w,), None,
+                                                           None, k=k, out="acc"))
+        for i in range(g):
+            one = harness.gemm(body, (xd[i],), (wd[i].contiguous(),), None, None,
+                               k=k, out="acc")
+            assert torch.equal(acc[i], one), (p, i)
+        for bias in (None, b):
+            bd = None if bias is None else bias.to(cuda)
+            got = harness.gemm_grouped(body, (xd,), (wd,), ws.to(cuda), as_.to(cuda),
+                                       bd, k=k)
+            want = harness.gemm_grouped(body, (x,), (w,), ws, as_, bias, k=k)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+            for i in range(g):
+                one = harness.gemm(body, (xd[i],), (wd[i].contiguous(),),
+                                   ws[i].to(cuda), as_[i].to(cuda),
+                                   None if bd is None else bd[i], k=k)
+                assert torch.equal(got[i].view(torch.int16), one.view(torch.int16))
+    codes = pack.unpack_planes_i8(sd, k, bits)                  # (g, n, k)
+    wdir = (codes.transpose(-1, -2).contiguous() if bits == 8
+            else pack.pack_int4(codes))
+    before = harness.GEMM_GROUPED.launches
+    dacc = harness.gemm_grouped(direct, (xd,), (wdir,), None, None, k=k, out="acc")
+    assert harness.GEMM_GROUPED.launches == before + 1
+    assert torch.equal(acc, dacc)
+
+
+@pytest.mark.cuda
+def test_grouped_plane_kernel_reads_truncated_view_in_place(cuda):
+    """A draft's `stack[:, :P]` (expert stride bits planes, not P) goes to
+    the launch as it is: the only allocation is the output, and the result
+    equals the launch on a contiguous copy; any other strided stack is
+    refused."""
+    body, (g, m, k, n) = pgemm.PLANES_W8_I8A, (16, 16, 2048, 2816)
+    gen = torch.Generator().manual_seed(5)
+    x, stack, ws, as_, _ = _grouped_planes(g, m, k, n, 8, gen)
+    xd, sd, wsd, asd = x.to(cuda), stack.to(cuda), ws.to(cuda), as_.to(cuda)
+    for p in (1, 3):
+        view = sd[:, :p]
+        assert not view.is_contiguous() and view.stride(0) == 8 * n * (k // 32)
+        harness.gemm_grouped(body, (xd,), (view,), wsd, asd, k=k)   # warm
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()
+        got = harness.gemm_grouped(body, (xd,), (view,), wsd, asd, k=k)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats()
+        # one allocation, the output's bytes (the allocator may hand out a
+        # larger cached block, so bytes are read as requested)
+        assert (after["allocation.all.allocated"]
+                - before["allocation.all.allocated"]) == 1
+        key = "requested_bytes.all.allocated"
+        if key in after:
+            assert after[key] - before[key] == got.numel() * got.element_size()
+        want = harness.gemm_grouped(body, (xd,), (view.contiguous(),), wsd, asd, k=k)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    for bad in (sd[:, 1:3], sd[::2, :2], sd[:, :2, ::2]):
+        xs = xd[:bad.shape[0]]                      # contiguous activations
+        with pytest.raises(ValueError, match="contiguous"):
+            harness.gemm_grouped(body, (xs,), (bad,), None, None, k=k, out="acc")
+
+
+def _reduced_moe_serve(cuda, arch, policy, slots, lens=(3, 9, 14, 5, 30, 1), *,
+                       impl="popcount", spec_draft=None):
     """Reduced `arch` (3 layers) served from the port's seeded init; returns
-    (tokens by request, stats, K11 launches)."""
+    (tokens by request, stats, grouped launches: K11 and K10 over expert
+    stacks)."""
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import transformer
     from repro_torch.models.common import ModelCtx
     cfg = dataclasses.replace(get_config(arch).reduced(), policy=policy, n_layers=3)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    sp = transformer.pack_for_serve(transformer.init(cfg, gen, cuda), cfg)
+    sp = transformer.pack_for_serve(transformer.init(cfg, gen, cuda), cfg,
+                                    plane_twins=True)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab, size=(n,)).astype(np.int32) for n in lens]
     srv = Server(cfg, sp, slots=slots, cache_len=64, page_size=8,
-                 ctx=ModelCtx(), device=cuda)
+                 ctx=ModelCtx(impl=impl), device=cuda, spec_draft=spec_draft)
     for i, p in enumerate(prompts):
         srv.submit(Request(i, p, 8, seed=i))
-    before = harness.GEMM_GROUPED.launches
+    before = (harness.GEMM_GROUPED.launches, harness.GEMM_GROUPED_PLANES.launches)
     srv.run()
     return ({r.rid: r.out for r in srv.completed}, srv.stats,
-            harness.GEMM_GROUPED.launches - before)
+            (harness.GEMM_GROUPED.launches - before[0],
+             harness.GEMM_GROUPED_PLANES.launches - before[1]))
 
 
 @pytest.mark.cuda
@@ -456,7 +575,27 @@ def test_reduced_moe_serve_batched_equals_sequential_on_card(cuda, arch, policy)
     assert st["moe_routed"] == sum(st["moe_expert_tokens"]) + st["moe_dropped"] > 0
     calls = st["prefills"] + st["decode_ticks"]
     # every W&A expert projection is one grouped launch; weight-only none
-    assert grouped == (0 if policy == "w-ternary" else 2 * 3 * calls)
+    assert grouped == (0 if policy == "w-ternary" else 2 * 3 * calls, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["het", "int8"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"])
+def test_reduced_moe_serve_planes_and_spec_on_card(cuda, arch, policy):
+    """--impl planes: every expert projection one grouped plane launch,
+    tokens == the direct cells', 4-slot == 1-slot; a planes:1 draft: spec
+    tokens == sequential tokens, the draft's expert projections on the
+    grouped plane launch, the verify step's on K11."""
+    direct = _reduced_moe_serve(cuda, arch, policy, 4)[0]
+    toks, st, (k11, k10g) = _reduced_moe_serve(cuda, arch, policy, 4, impl="planes")
+    assert toks == direct
+    assert toks == _reduced_moe_serve(cuda, arch, policy, 1, impl="planes")[0]
+    assert (k11, k10g) == (0, 2 * 3 * (st["prefills"] + st["decode_ticks"]))
+    toks, st, (k11, k10g) = _reduced_moe_serve(cuda, arch, policy, 4,
+                                               spec_draft="planes:1")
+    assert toks == direct and st["spec_ticks"] > 0
+    assert k11 > 0 and k10g > 0
+    assert st["moe_routed"] == sum(st["moe_expert_tokens"]) + st["moe_dropped"] > 0
 
 
 def _reduced_serve(cuda, policy, slots, *, impl="popcount", kv="bfloat16",

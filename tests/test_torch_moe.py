@@ -9,7 +9,9 @@ Bars:
     formulation (`harness.requant` per member) bit for bit (the Pallas
     requant contracts to an FMA, ROADMAP queue 3, so it is not the
     yardstick); the grouped call equals a loop of `harness.gemm` per group
-    member, bit for bit; plane bodies are refused;
+    member, bit for bit; the plane bodies (K10 over expert stacks) equal
+    JAX's grouped accumulator too, on a full and on a truncated stack, and
+    malformed operands are refused;
   * expert-stacked `qgemm` (twin of tests/test_dispatch.py
     `test_qgemm_expert_axis`): for every registered cell, E = 3, bias on,
     the port packs the JAX train weights into the JAX packed stack, and its
@@ -18,8 +20,9 @@ Bars:
     ternary activation cells (their per-row means are summed in another
     order, ROADMAP queue 3 "Float means"), whose int32 accumulators are
     held exact on JAX's own prepared operands, and for the weight-only and
-    dense cells (an f32 sum in another order); the plane cells are refused
-    as not yet ported;
+    dense cells (an f32 sum in another order); the plane cells
+    (impl="planes") are held bit for bit like the other int8-activation
+    cells;
   * twins of tests/test_archs.py's MoE arms: router geometry, kept +
     dropped == B·S·top_k, the shared expert really contributes;
   * `moe_apply` against JAX `moe_apply` on the same packed params, in f32:
@@ -35,11 +38,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import one_torch_thread  # noqa: F401
 from repro.configs import get_config as jget_config
 from repro.core import precision as jprecision
 from repro.core import qlinear as jqlinear
 from repro.kernels import dispatch as jdispatch
 from repro.kernels import harness as jharness
+from repro.kernels import pgemm as pgemm_j
 from repro.models import moe as jmoe
 from repro.models.common import ModelCtx as JCtx
 from repro_torch.bridge import to_torch
@@ -141,13 +146,27 @@ def test_grouped_gemm_bit_equal_to_jax_and_looped(key, m):
 
 
 def test_grouped_gemm_refuses_planes_and_bad_shapes():
+    """The plane bodies, once refused, run grouped: their accumulator
+    equals JAX `gemm_grouped` on a (G, bits, N, K/32) stack and on its
+    leading-P slice (read as a view); malformed operands are refused."""
     body = tdispatch.lookup(tdispatch.OperatingPoint("int4", "int8")).body
     x, w, ws, as_, _ = _grouped_operands(body, 2, 4, 32, 64,
                                          np.random.default_rng(0))
     tx, tw = [torch.from_numpy(a) for a in x], [torch.from_numpy(a) for a in w]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tharness.gemm_grouped(pgemm.PLANES_W4_I8A, tx, tw, None, None, k=64,
-                              out="acc")
+    rng = np.random.default_rng(1)
+    stack = rng.integers(-2 ** 31, 2 ** 31, (2, 4, 32, 2), dtype=np.int64
+                         ).astype(np.int32)
+    for p in (4, 2):
+        want = np.asarray(jharness.gemm_grouped(
+            pgemm_j.PLANES_W4_I8A, [_jx(x[0])], [_jx(stack[:, :p])], k=64,
+            interpret=True, out="acc"))
+        got = tharness.gemm_grouped(pgemm.PLANES_W4_I8A, tx,
+                                    [torch.from_numpy(stack)[:, :p]], None, None,
+                                    k=64, out="acc")
+        np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="leading group axis"):
+        tharness.gemm_grouped(pgemm.PLANES_W4_I8A, tx, [torch.from_numpy(stack)[0]],
+                              None, None, k=64, out="acc")
     with pytest.raises(ValueError, match="leading group axis"):
         tharness.gemm_grouped(body, [tx[0][0]], [tw[0][0]], None, None, k=64,
                               out="acc")
@@ -200,10 +219,6 @@ def test_qgemm_expert_axis_matches_jax(key):
     op = jdispatch.OperatingPoint(*key)
     tp = _to_port(packed)
     top = tdispatch.OperatingPoint(*key)
-    if key[2] == "planes":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tdispatch.qgemm(tp, torch.from_numpy(x), tspec, top)
-        return
     want = jdispatch.qgemm(packed, jnp.asarray(x), jspec, op)
     y = tdispatch.qgemm(tp, torch.from_numpy(x), tspec, top)
     assert y.dtype == torch.bfloat16 and y.shape == (e, m, tspec.out_dim)

@@ -19,8 +19,10 @@ stacked `mid` periods, carried over by `repro_torch.bridge`. Bars:
     resolve to the reference's, and `init_for_serve` (block by block)
     equals `pack_for_serve(init(...))`;
   * the port's 4-slot server emits its 1-slot server's tokens;
-  * the CLI serves an MoE arch, and refuses `--spec-draft` and `--impl
-    planes` on one as not yet ported.
+  * the CLI serves an MoE arch, also with `--spec-draft` and `--impl
+    planes` (once refused), and so does the `Server`, with routing counters
+    that add up (tests/test_torch_moe_planes.py holds those runs against
+    the JAX server).
 """
 import dataclasses
 import functools
@@ -31,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import CACHE_LEN, PAGE_SIZE, built, np_tree, prompts
+from _torch_port import (CACHE_LEN, PAGE_SIZE, built, np_tree,  # noqa: F401
+                         one_torch_thread, prompts)
 from repro.launch.serve import Request as JRequest
 from repro.launch.serve import Server as JServer
 from repro.models import transformer as jtransformer
@@ -206,13 +209,24 @@ def test_moe_cli_serves_and_refuses_unported():
     assert srv.ctx.moe_stats
     st = srv.stats
     assert st["moe_routed"] == sum(st["moe_expert_tokens"]) + st["moe_dropped"] > 0
+    # --spec-draft and --impl planes on an MoE arch, once refused, serve
     for flags in (["--spec-draft", "planes:1"], ["--impl", "planes"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tserve.main(["--arch", "deepseek-moe-16b", "--reduced", "--device",
-                         "cpu", "--policy", "w4a8", *flags])
-    _, tcfg, _, sparams = _built("deepseek-moe-16b", "het")
-    tp = bridge.from_jax_params(np_tree(sparams), tcfg)
-    for kw in ({"spec_draft": "planes:1"}, {"ctx": ModelCtx(impl="planes")}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tserve.Server(tcfg, tp, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
-                          device="cpu", **kw)
+        srv = tserve.main(["--arch", "deepseek-moe-16b", "--reduced", "--device",
+                           "cpu", "--requests", "1", "--max-new", "3", "--policy",
+                           "w4a8", *flags])
+        assert [len(r.out) for r in srv.completed] == [3]
+        assert srv.spec == ("--spec-draft" in flags)
+        st = srv.stats
+        assert st["moe_routed"] == sum(st["moe_expert_tokens"]) + st["moe_dropped"] > 0
+    _, tcfg, params, _ = _built("deepseek-moe-16b", "het")
+    tp = transformer.pack_for_serve(bridge.from_jax_params(np_tree(params), tcfg),
+                                    tcfg, plane_twins=True)
+    for kw in ({"spec_draft": "planes:1"}, {"ctx": ModelCtx(dtype=torch.float32,
+                                                            impl="planes")}):
+        srv = tserve.Server(tcfg, tp, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
+                            device="cpu", **kw)
+        srv.submit(tserve.Request(0, _prompts("deepseek-moe-16b")[0], 3))
+        srv.run()
+        assert len(srv.completed[0].out) == 3
+        st = srv.stats
+        assert st["moe_routed"] == sum(st["moe_expert_tokens"]) + st["moe_dropped"] > 0
