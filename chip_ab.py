@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Time the grouped GEMM of several builds of `csrc/gemm.cu` against each
+other on one NVIDIA GPU, at the deepseek-moe-16b decode tick (28 layers x
+{up, down}, 64 experts, 16 rows an expert).
+
+    python3 chip_ab.py TREE [TREE ...]
+
+A TREE is a directory holding a checkout of this repository (`.` for this
+one, or a parent commit unpacked with `git archive` into `build/parent`).
+Each tree's `src/repro_torch/kernels/csrc/gemm.cu` is built with
+`build.NVCC_FLAGS` (one nvcc each, in parallel) into `build/ab/`; its
+ptxas lines for the grouped tensor-core kernels are printed. Every tree
+runs through this checkout's harness, the body's grouped launcher bound to
+that tree's `repro_gemm_grouped` (one C signature in every tree), on the
+same operands, and each result must be bit-equal to the body's plain
+version (int32 accumulator and bf16 output). The bodies are grouped K7
+(binary, ternary), K8 and K11's s4 body. Per body the trees are timed in
+turns, t1 .. tn then tn .. t1, each launch as `chip_smoke.time_ms` times it
+(operands cold, 10 launches); a tree's tick is the mean of its two turns.
+Prints the card's name and power limit, a line per body, then one JSON
+line. Exits non-zero without a CUDA device or when a tree disagrees.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+#: the bodies timed: grouped K7 (binary, ternary), K8, and K11's s4 body
+TIMED = ("bgemm_mxu", "tgemm_mxu", "tgemm_wt_i8a", "i4gemm_w4a8")
+ROWS = 16                    # rows an expert: the 4-slot decode tick's
+
+
+def build_tree(tree: str):
+    """Start nvcc for one tree; returns (tree, library path, Popen or None
+    when the library exists)."""
+    from repro_torch.kernels import build
+    src = (ROOT / tree).resolve() / "src/repro_torch/kernels/csrc/gemm.cu"
+    if not src.exists():
+        raise SystemExit(f"chip_ab: no {src}")
+    h = hashlib.sha256(src.read_bytes() + (src.parent / "ptx.cuh").read_bytes())
+    out = ROOT / "build" / "ab" / f"libgemm-{h.hexdigest()[:12]}.so"
+    if out.exists():
+        return tree, out, None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)]
+    return tree, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_lines(tree: str, text: str, keep=("mxu_mma", "wt_mma", "s4_mma")) -> None:
+    """Print the registers and spills of the grouped tensor-core kernels."""
+    fn = None
+    for line in text.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            fn = hit.group(1)
+        elif fn and any(k in fn for k in keep) and ("registers" in line or "spill" in line):
+            print(f"[ab] {tree} {fn}: {line.strip()}", flush=True)
+
+
+def bind(path: Path):
+    """The tree's `repro_gemm_grouped`, typed as the harness calls it."""
+    from repro_torch.kernels import harness
+    fn = ctypes.CDLL(str(path)).repro_gemm_grouped
+    fn.argtypes = list(harness.GEMM_GROUPED.argtypes) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="+")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import BODIES, harness
+
+    cs.phase_device()
+    jobs = [build_tree(t) for t in args.trees]
+    libs = []
+    for tree, out, proc in jobs:
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                print(f"chip_ab: nvcc failed for {tree}:\n{log}", file=sys.stderr)
+                return 1
+            ptxas_lines(tree, log)
+        libs.append((tree, bind(out)))
+
+    by_name = {b.name: b for b in BODIES}
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flush = torch.ones(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    m, result = ROWS, {}
+    for bname in TIMED:
+        body = by_name[bname]
+        tick = {tree: 0.0 for tree, _ in libs}
+        for name, g, n, k in cs.moe_gemm_shapes(cfg):
+            x_ops, w_ops, ws, as_, bias = cs.grouped_stack(body, g, m, n, k, gen)
+            dot = cs.grouped_plain(body, x_ops, w_ops, None, None, None, k, "acc")
+            want = cs.grouped_plain(body, x_ops, w_ops, ws, as_, bias, k)
+            for tree, fn in libs:
+                body.grouped._fn = fn
+                acc = harness.gemm_grouped(body, x_ops, w_ops, None, None, k=k, out="acc")
+                got = harness.gemm_grouped(body, x_ops, w_ops, ws, as_, bias, k=k)
+                if not (torch.equal(acc, dot) and
+                        torch.equal(got.view(torch.int16), want.view(torch.int16))):
+                    print(f"chip_ab: {tree} {bname} {name}: kernel != plain",
+                          file=sys.stderr)
+                    return 1
+            turns = libs + libs[::-1]
+            for tree, fn in turns:
+                body.grouped._fn = fn
+                ms = cs.time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws, as_,
+                                                             k=k), 10, flush)
+                tick[tree] += cfg.n_layers * ms / 2
+            del x_ops, w_ops, ws, as_, bias, dot, want
+            torch.cuda.empty_cache()
+        result[bname] = tick
+        print(f"[ab] {bname} deepseek-moe-16b {m}-row decode tick (28 x {{up, down}}, "
+              f"bit-equal to plain in every tree): "
+              + "; ".join(f"{tree} {t:.3f} ms" for tree, t in tick.items()), flush=True)
+    print(json.dumps({"rows": m, "tick_ms": result}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,10 +10,12 @@ Phases:
                (one nvcc per source, in parallel) for sm_90a; prints each
                kernel's registers and spills, and fails unless the SASS
                (cuobjdump) of K6's bf16 kernel holds HMMA/HGMMA, that of
-               the large-M kernels of K1, K7 (binary and ternary), K8, K9
+               every instantiation (16- and 128-row tiles) of the
+               tensor-core kernels of K1, K7 (binary and ternary), K8, K9
                and K10 IMMA/IGMMA and that of K3's and K4's BMMA/BGMMA
                instructions, or if K5's llama3.2-3b or deepseek-moe-16b
-               instantiation or any of K3's and K4's kernels spills
+               instantiation, any of K3's and K4's kernels or the 16-row
+               K7 / K8 tiles spill
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, at the serve path's full llama3.2-3b shapes: the packed
                GEMM under each of its seven MAC bodies at M = 4, 32 and 256,
@@ -41,9 +43,14 @@ Phases:
                (the plane bodies grouped) at the same shapes and rows, P = 1
                and bits live planes (bit-equal to the plain version and to
                G ungrouped K10 launches, and at P = bits to K11's int4 /
-               int8 body on the composed codes); the grouped bodies still
-               on gemm_kernel (K3, K4, K7, K8) at deepseek-moe-16b's decode
-               tick shape (bit-equal, timed); with
+               int8 body on the composed codes); grouped K7 (binary and
+               ternary mxu) and K8 (wt-i8a) on the tensor-core tile at the
+               same shapes and rows (bit-equal to the plain version and to
+               G ungrouped launches; K7's accumulators equal grouped K3's /
+               K4's); the grouped bodies still on gemm_kernel (K3, K4) at
+               deepseek-moe-16b's decode tick shape (bit-equal, timed
+               beside grouped K7 on the same operands and torch.bmm) and
+               at 128 rows beside torch._int_mm once per expert; with
                kernel, plain and library times and the bound of each
   4. serve   — full-width, 28-layer llama3.2-3b from the port's seeded init,
                8 requests through the paged continuous-batching server:
@@ -76,15 +83,18 @@ Phases:
                K11) at 4 layers; 4-slot tokens == 1-slot tokens, the routing
                counters (moe_routed == sum(moe_expert_tokens) +
                moe_dropped), and the GEMM launches exactly one per layer per
-               forward call, one K11 launch per expert projection;
+               forward call, one grouped launch per expert projection,
+               counted by its form;
                deepseek het also with `--impl planes` and with
                `--spec-draft planes:1 --spec-k 4`, phi3.5-moe het with
                `--impl planes` (K10 over expert stacks; tokens == the
                direct run's, 4-slot == 1-slot, launches counted exactly);
-               deepseek at 4 layers under binary, ternary, ternary with
-               `--impl mxu` and wt-a8 (the grouped gemm_kernel bodies);
-               then one profiled 4-slot decode tick of deepseek het, direct
-               and under `--impl planes`
+               deepseek at full depth under wt-a8 (grouped K8) and ternary,
+               popcount and `--impl mxu` (grouped K4, grouped K7: mxu
+               tokens == popcount tokens), and at 4 layers under binary and
+               ternary (the grouped gemm_kernel bodies, K3 and K4); then
+               one profiled 4-slot decode tick of deepseek het, direct and
+               under `--impl planes`, and of deepseek wt-a8
   6. archs   — qwen1.5-32b (4 of 64 layers) and nemotron-4-340b (2 of 96)
                at full width under ternary: 4-slot == 1-slot tokens
   7. launches — every kernel was launched on the serve path
@@ -97,7 +107,10 @@ Phases:
                decode, per 256-token prefill (28 layers) for flash
                attention, and per 4-slot deepseek-moe-16b het decode tick
                (28 x {up, down} expert stacks) for K11 (K9 body) and for K10
-               over expert stacks (int4 stacks, P = 4)
+               over expert stacks (int4 stacks, P = 4), per 4-slot deepseek
+               decode tick of its policy (28 x {up, down}, 16 rows an
+               expert) for grouped K7 (ternary mxu), K8 and K4 (ternary
+               popcount, whose record holds K3's grouped launches too)
 The last line is {"ok": true, "device": {...}} only when every phase passed;
 any failure exits non-zero. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -124,6 +137,7 @@ INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 SPIN_CYCLES = 200_000        # ~0.1 ms of device clock before each timed span
 TICK_SPIN_CYCLES = 40_000_000   # ~20 ms: the host issues a tick's launches meanwhile
+LIST_SPIN_CYCLES = 4_000_000    # ~2 ms: ... or a library call once per expert
 
 ARCH = "llama3.2-3b"
 POLICIES = ("binary", "ternary", "int8")     # the first slice's runs
@@ -167,11 +181,16 @@ MOE_ARCHS = ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b")
 GROUPED_ROWS = (4, 16, 128)
 TICK_ROWS = 16               # the 4-slot decode tick's, timed per tick
 LIB_ROWS = 128               # rows an expert where torch._int_mm is timed beside
-#: grouped bodies still on gemm_kernel (K3, K4, K7, K8), timed at the
-#: deepseek-moe-16b decode tick's shape; and the 4-layer deepseek runs
-#: that send its expert projections there: (policy, impl)
-FIRST_VERSION_RUNS = (("binary", "popcount"), ("ternary", "popcount"),
-                      ("ternary", "mxu"), ("wt-a8", "popcount"))
+#: the grouped forms on the tensor-core tile, checked at the MoE expert
+#: shapes: kernel record -> its bodies, the first the one whose deepseek
+#: decode tick the record holds (het's experts for K11, the served ternary
+#: --impl mxu for K7, wt-a8's for K8)
+GROUPED_FORMS = {"gemm_grouped": ("i4gemm_w4a8", "i8gemm"),
+                 "gemm_grouped_mxu": ("tgemm_mxu", "bgemm_mxu"),
+                 "gemm_grouped_wt_i8a": ("tgemm_wt_i8a",)}
+#: the 4-layer deepseek runs that send the expert projections to the
+#: grouped bodies still on gemm_kernel (K3, K4): (policy, impl)
+FIRST_VERSION_RUNS = (("binary", "popcount"), ("ternary", "popcount"))
 #: GEMM rows checked: decode (4 slots), both prefill buckets, and for the
 #: mxu bodies (K7) and their popcount twins each side of K7's switch from
 #: its streaming kernel (up to 8 rows) to its tensor-core kernel
@@ -192,10 +211,19 @@ REPLACES = {
                        "_flash_kernel :31)",
     "gemm_grouped": "src/repro/kernels/harness.py:257 (gemm_grouped; on one "
                     "device the expert vmap of dispatch.py:927-931)",
+    "gemm_grouped_pop": "src/repro/kernels/harness.py:257 (gemm_grouped with "
+                        "BINARY_POPCOUNT / TERNARY_POPCOUNT, bgemm.py:29 / tgemm.py:29; "
+                        "on one device the expert vmap of dispatch.py:927-931)",
     "gemm_grouped_planes": "src/repro/kernels/harness.py:257 (gemm_grouped with "
                            "PLANES_W4_I8A / PLANES_W8_I8A, pgemm.py:39 _planes_step, "
                            ":61, :62; on one device the expert vmap of "
                            "dispatch.py:927-931)",
+    "gemm_grouped_mxu": "src/repro/kernels/harness.py:257 (gemm_grouped with "
+                        "BINARY_MXU / TERNARY_MXU, bgemm.py:50 / tgemm.py:56 _mxu_step; "
+                        "on one device the expert vmap of dispatch.py:927-931)",
+    "gemm_grouped_wt_i8a": "src/repro/kernels/harness.py:257 (gemm_grouped with "
+                           "TERNARY_W_I8A, tgemm.py:70 _wt_i8a_step; on one device "
+                           "the expert vmap of dispatch.py:927-931)",
 }
 SOURCE = {name: "src/repro_torch/kernels/csrc/gemm.cu" for name in REPLACES}
 SOURCE["paged_flash_decode"] = "src/repro_torch/kernels/csrc/paged_attn.cu"
@@ -266,19 +294,21 @@ TENSOR_CORE_KERNELS = [("flash_attn", "flash_mma_kernel", ("HMMA", "HGMMA")),   
                        ("gemm", "i8_mma_kernel", ("IMMA", "IGMMA")),            # K1, K11
                        ("gemm", "s4_mma_kernel", ("IMMA", "IGMMA")),            # K9, K11
                        ("gemm", "planes_mma_kernel", ("IMMA", "IGMMA")),        # K10
-                       ("gemm", "bmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7
-                       ("gemm", "tmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7
-                       ("gemm", "wt_mma_kernel", ("IMMA", "IGMMA")),            # K8
+                       ("gemm", "bmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7, grouped
+                       ("gemm", "tmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7, grouped
+                       ("gemm", "wt_mma_kernel", ("IMMA", "IGMMA")),            # K8, grouped
                        # K3, K4: b1 products on the tensor cores (BMMA), not
                        # emulated by a run of LOP3 / POPC
                        ("gemm", "pop_mma_kernel", ("BMMA", "BGMMA"))]
 #: instantiations that must not spill: K5's (G, dh) of llama3.2-3b and
-#: deepseek-moe-16b, as in `paged_decode_kernel<QT, KVT, G, dh>`, and every
+#: deepseek-moe-16b, as in `paged_decode_kernel<QT, KVT, G, dh>`, every
 #: instantiation of K3's and K4's kernels, which llama3.2-3b's binary and
-#: ternary ticks run (MS = 4 and 8 rows; NP = 1 and 2 planes)
+#: ternary ticks run (MS = 4 and 8 rows; NP = 1 and 2 planes), and K7's and
+#: K8's 16-row tiles, which the MoE decode ticks run (BM = 16)
 NO_SPILL = {"paged_decode_kernel": ("Li3ELi128E", "Li1ELi128E"),
             "bpop_stream_kernel": ("Li4E", "Li8E"), "tpop_stream_kernel": ("Li4E", "Li8E"),
-            "pop_mma_kernel": ("Li1E", "Li2E")}
+            "pop_mma_kernel": ("Li1E", "Li2E"), "bmxu_mma_kernel": ("Li16E",),
+            "tmxu_mma_kernel": ("Li16E",), "wt_mma_kernel": ("Li16E",)}
 
 
 def ptxas_report(name: str, text: str) -> dict:
@@ -315,10 +345,10 @@ def check_spills(spills: dict) -> None:
 
 def sass_tensor_cores() -> None:
     """cuobjdump -sass (the toolkit's, beside nvcc) of the built libraries:
-    K6's bf16 kernel must hold HMMA (or HGMMA), the large-M kernels of K1,
-    K7, K8, K9 and K10 IMMA (or IGMMA) and K3's and K4's BMMA (or BGMMA)
-    instructions (each instantiation: K1's and K9's row tiles, K10's bit
-    widths, K3's and K4's planes)."""
+    K6's bf16 kernel must hold HMMA (or HGMMA), the tensor-core kernels of
+    K1, K7, K8, K9 and K10 IMMA (or IGMMA) and K3's and K4's BMMA (or BGMMA)
+    instructions (each instantiation: the row tiles of K1, K7, K8, K9 and
+    K10, K10's bit widths, K3's and K4's planes)."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
@@ -413,6 +443,18 @@ def unpacked_i8(body, x_ops, w_ops, k):
     else:
         wi = pack.unpack_pm1_i8(w[0], k).T.contiguous()
     return xi.contiguous(), wi
+
+
+def member_codes(body, x_ops, w_ops, k) -> list:
+    """unpacked_i8 of each member of grouped operands."""
+    return [unpacked_i8(body, [t[i] for t in x_ops], [t[i] for t in w_ops], k)
+            for i in range(x_ops[0].shape[0])]
+
+
+def int_mm_per_expert(codes, flush) -> float:
+    """Device ms of `torch._int_mm` once per member (M > 16) on `codes`."""
+    return time_ms(lambda: [torch._int_mm(a, w) for a, w in codes], 10, flush,
+                   spin=LIST_SPIN_CYCLES)
 
 
 def check_gemm(body, cfg, flush, gen, accs) -> dict:
@@ -555,61 +597,83 @@ def grouped_bit_equal(label, body, x_ops, w_ops, ws, as_, bias, k):
     return acc
 
 
-def check_grouped(flush, gen) -> dict:
-    """K11 vs its plain version and vs G ungrouped launches of the same
-    body, at the full-width expert shapes of deepseek-moe-16b and
-    phi3.5-moe-42b-a6.6b, at M = 4, 16 and 128 rows per expert, under the K9
-    (het's experts) and K1 (int8's experts) bodies: int32 accumulator and
-    bf16 output (bias on and off) bit-equal. Returns the record of a
-    4-slot deepseek-moe-16b het decode tick: 28 layers x {up, down} at M =
-    16 under K9, one launch each."""
+def check_grouped(flush, gen) -> list:
+    """The grouped forms on the tensor-core tile (GROUPED_FORMS) vs their
+    plain version and vs G ungrouped launches of the same body, at the
+    full-width expert shapes of deepseek-moe-16b and phi3.5-moe-42b-a6.6b,
+    at M = 4, 16 and 128 rows per expert: K11's K9 (het's experts) and K1
+    (int8's) bodies, grouped K7 (ternary and binary mxu, whose accumulators
+    must also equal grouped K4's / K3's on the same operands) and grouped
+    K8 (wt-a8's experts): int32 accumulator and bf16 output (bias on and
+    off) bit-equal. Every shape is timed, at M = 128 beside
+    `torch._int_mm` once per expert on the unpacked codes. Returns one
+    record per form for a 4-slot deepseek-moe-16b decode tick of its first
+    body: 28 layers x {up, down} at M = 16, one launch each; its library
+    time is one `torch.bmm` over the experts in bf16 on the unpacked codes
+    (exact products and f32 sums: the same dot, rounded to bf16)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import harness, i4gemm, i8gemm
-    tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    from repro_torch.kernels import BODIES, harness
+    by_name = {b.name: b for b in BODIES}
+    ticks = {form: dict.fromkeys(("ms", "plain_ms", "bytes", "ops", "lib"), 0.0)
+             for form in GROUPED_FORMS}
     for arch in MOE_ARCHS:
         cfg = get_config(arch)
         for name, g, n, k in moe_gemm_shapes(cfg):
-            for body in (i4gemm.INT4_W_I8A, i8gemm.I8_DOT):
-                for m in GROUPED_ROWS:
-                    gen.manual_seed(3000 * m + g + n + body.body_id)
-                    x_ops, w_ops, ws, as_, bias = grouped_stack(body, g, m, n, k, gen)
-                    acc = grouped_bit_equal(f"K11 {body.name} {arch} {name} M={m}", body,
-                                            x_ops, w_ops, ws, as_, bias, k)
-                    ms = time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws,
-                                                              as_, k=k), 10, flush)
-                    nbytes = (sum(t.numel() * t.element_size() for t in x_ops + w_ops)
-                              + 4 * g * (m + n) + 2 * g * m * n)
-                    ops = 2.0 * g * m * n * k
-                    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-                    msg = (f"[kernels] gemm_grouped {body.name:11s} {arch} {name:4s} "
-                           f"G={g} M={m:3d} N={n:5d} K={k}: bit-equal to plain and to "
-                           f"{g} ungrouped launches  kernel {ms:.4f} ms  bound "
-                           f"{max(t_b, t_o) * 1e3:.4f} ms "
-                           f"({'bytes' if t_b >= t_o else 'operations'})")
-                    if m == TICK_ROWS:
-                        pms = time_ms(lambda: grouped_plain(body, x_ops, w_ops, ws,
-                                                            as_, None, k), 1)
-                        msg += f"  plain {pms:.2f} ms"
-                        if arch == MOE_ARCHS[0] and body is i4gemm.INT4_W_I8A:
-                            n_l = cfg.n_layers
-                            tick["ms"] += n_l * ms
-                            tick["plain_ms"] += n_l * pms
-                            tick["bytes"] += n_l * nbytes
-                            tick["ops"] += n_l * ops
-                    if body is i8gemm.I8_DOT and m > 16:
-                        # yardstick: torch._int_mm once per expert (M > 16 only)
-                        xs, wsl = list(x_ops[0]), list(w_ops[0])
-                        lib = time_ms(lambda: [torch._int_mm(a, w_)
-                                               for a, w_ in zip(xs, wsl)], 10, flush)
-                        msg += f"  torch._int_mm x {g} experts {lib:.4f} ms"
-                    log(msg)
-                    del x_ops, w_ops, ws, as_, bias, acc
-    t_b, t_o = tick["bytes"] / HBM_BYTES_PER_S, tick["ops"] / INT8_OPS_PER_S
-    return {"name": "gemm_grouped", "max_abs_err": 0.0, "ms": tick["ms"],
-            "plain_ms": tick["plain_ms"], "bound_ms": max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            # het's experts run the s4 x int8 body: PyTorch has no such GEMM
-            "library_ms": None}
+            for form, bodies in GROUPED_FORMS.items():
+                for body in (by_name[b] for b in bodies):
+                    for m in GROUPED_ROWS:
+                        gen.manual_seed(3000 * m + g + n + body.body_id)
+                        x_ops, w_ops, ws, as_, bias = grouped_stack(body, g, m, n, k, gen)
+                        label = f"{form} {body.name} {arch} {name} M={m}"
+                        acc = grouped_bit_equal(label, body, x_ops, w_ops, ws, as_, bias, k)
+                        twin = MXU_TWIN.get(body.name)
+                        if twin is not None and not torch.equal(acc, harness.gemm_grouped(
+                                by_name[twin], x_ops, w_ops, None, None, k=k, out="acc")):
+                            raise AssertionError(f"{label}: accumulator != grouped {twin}")
+                        ms = time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws,
+                                                                  as_, k=k), 10, flush)
+                        nbytes = (sum(t.numel() * t.element_size() for t in x_ops + w_ops)
+                                  + 4 * g * (m + n) + 2 * g * m * n)
+                        ops = 2.0 * g * m * n * k
+                        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+                        msg = (f"[kernels] {form} {body.name:12s} {arch} {name:4s} G={g} "
+                               f"M={m:3d} N={n:5d} K={k}: bit-equal to plain and to {g} "
+                               f"ungrouped launches" + (f", == grouped {twin}" if twin else "")
+                               + f"  kernel {ms:.4f} ms  bound {max(t_b, t_o) * 1e3:.4f} ms "
+                               f"({'bytes' if t_b >= t_o else 'operations'})")
+                        if m == TICK_ROWS:
+                            pms = time_ms(lambda: grouped_plain(body, x_ops, w_ops, ws,
+                                                                as_, None, k), 1)
+                            msg += f"  plain {pms:.2f} ms"
+                            if arch == MOE_ARCHS[0] and body.name == bodies[0]:
+                                cs = member_codes(body, x_ops, w_ops, k)
+                                xb = torch.stack([c[0] for c in cs]).to(torch.bfloat16)
+                                wb = torch.stack([c[1] for c in cs]).to(torch.bfloat16)
+                                lib = time_ms(lambda: torch.bmm(xb, wb), 10, flush)
+                                msg += f"  torch.bmm bf16 on the unpacked codes {lib:.4f} ms"
+                                del cs, xb, wb
+                                t = ticks[form]
+                                for key, v in (("ms", ms), ("plain_ms", pms),
+                                               ("bytes", nbytes), ("ops", ops), ("lib", lib)):
+                                    t[key] += cfg.n_layers * v
+                        if m == LIB_ROWS:
+                            lib = int_mm_per_expert(member_codes(body, x_ops, w_ops, k), flush)
+                            msg += f"  torch._int_mm x {g} experts {lib:.4f} ms"
+                        log(msg)
+                        del x_ops, w_ops, ws, as_, bias, acc
+                        torch.cuda.empty_cache()
+    recs = []
+    for form, t in ticks.items():
+        t_b, t_o = t["bytes"] / HBM_BYTES_PER_S, t["ops"] / INT8_OPS_PER_S
+        log(f"[kernels] {form} {GROUPED_FORMS[form][0]} deepseek-moe-16b {SLOTS}-slot "
+            f"decode tick (28 x {{up, down}}, M={TICK_ROWS}): {t['ms']:.3f} ms (plain "
+            f"{t['plain_ms']:.1f} ms, bound {max(t_b, t_o) * 1e3:.4f} ms, "
+            f"{'bytes' if t_b >= t_o else 'operations'}; torch.bmm bf16 {t['lib']:.3f} ms)")
+        recs.append({"name": form, "max_abs_err": 0.0, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "library_ms": t["lib"]})
+    return recs
 
 
 def check_grouped_planes(flush, gen) -> dict:
@@ -688,11 +752,9 @@ def check_grouped_planes(flush, gen) -> dict:
                             tick["plain_ms"] += n_l * pms
                             tick["ops"] += n_l * ops
                     if m == LIB_ROWS:
-                        xs, cs = list(x), [c.T.contiguous() for c in codes]
-                        lib = time_ms(lambda: [torch._int_mm(a, c)
-                                               for a, c in zip(xs, cs)], 10, flush)
+                        lib = int_mm_per_expert([(a, c.T.contiguous())
+                                                 for a, c in zip(x, codes)], flush)
                         msg += f"  torch._int_mm x {g} experts {lib:.4f} ms"
-                        del xs, cs
                     log(msg)
                     del x, stack, codes, acc
                     torch.cuda.empty_cache()
@@ -710,43 +772,81 @@ def check_grouped_planes(flush, gen) -> dict:
             "library_ms": None}
 
 
-def check_grouped_first_version(flush, gen) -> None:
-    """The grouped bodies still on gemm_kernel (K3, K4, K7, K8), which MoE
-    runs under binary, ternary, mixed, wt-a8 or --impl mxu reach: at the
-    deepseek-moe-16b decode tick's expert shapes (G = 64, M = 16), bit-equal
-    to the plain version and to G ungrouped launches, each timed; logs the
-    4-slot tick (28 x {up, down}) of each beside its bound."""
+def check_grouped_popcount(flush, gen) -> dict:
+    """The grouped bodies still on gemm_kernel (K3, K4), which MoE runs
+    under binary, ternary or mixed reach: at the deepseek-moe-16b expert
+    shapes (G = 64) and M = 16 (the decode tick) and 128 rows an expert,
+    bit-equal to the plain version and to G ungrouped launches, each timed
+    beside the grouped K7 tile on the same operands (its accumulators equal
+    theirs), at M = 128 also beside `torch._int_mm` once per expert on the
+    unpacked codes; logs the 4-slot tick (28 x {up, down}) of each beside
+    its bound and K7's. Returns the record of K4's tick (the served ternary
+    policy's experts); its library time is one `torch.bmm` over the experts
+    in bf16 on the unpacked codes, as `check_grouped`'s."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import bgemm, harness, tgemm
+    from repro_torch.kernels import BODIES, harness
+    by_name = {b.name: b for b in BODIES}
     cfg = get_config(MOE_ARCHS[0])
-    for body in (bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT, bgemm.BINARY_MXU,
-                 tgemm.TERNARY_MXU, tgemm.TERNARY_W_I8A):
-        tick_ms, tick_pms, tick_b, tick_o = 0.0, 0.0, 0.0, 0.0
+    rec = None
+    for twin, pop in MXU_TWIN.items():
+        body, mxu = by_name[pop], by_name[twin]
+        tick_ms, tick_mxu, tick_pms, tick_b, tick_o, tick_lib = (0.0,) * 6
         for name, g, n, k in moe_gemm_shapes(cfg):
-            gen.manual_seed(5000 + g + n + body.body_id)
-            x_ops, w_ops, ws, as_, bias = grouped_stack(body, g, TICK_ROWS, n, k, gen)
-            grouped_bit_equal(f"gemm_kernel grouped {body.name} {name}", body, x_ops,
-                              w_ops, ws, as_, bias, k)
-            ms = time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws, as_, k=k),
-                         10, flush)
-            pms = time_ms(lambda: grouped_plain(body, x_ops, w_ops, ws, as_, None, k), 1)
-            nbytes = (sum(t.numel() * t.element_size() for t in x_ops + w_ops)
-                      + 4 * g * (TICK_ROWS + n) + 2 * g * TICK_ROWS * n)
-            ops = 2.0 * g * TICK_ROWS * n * k
-            log(f"[kernels] gemm_grouped (gemm_kernel) {body.name:15s} {name:4s} G={g} "
-                f"M={TICK_ROWS} N={n} K={k}: bit-equal to plain and to {g} ungrouped "
-                f"launches  kernel {ms:.4f} ms  plain {pms:.2f} ms  bound "
-                f"{max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3:.4f} ms")
-            tick_ms += cfg.n_layers * ms
-            tick_pms += cfg.n_layers * pms
-            tick_b += cfg.n_layers * nbytes
-            tick_o += cfg.n_layers * ops
-            del x_ops, w_ops, ws, as_, bias
+            for m in (TICK_ROWS, LIB_ROWS):
+                gen.manual_seed(5000 + m + g + n + body.body_id)
+                x_ops, w_ops, ws, as_, bias = grouped_stack(body, g, m, n, k, gen)
+                label = f"gemm_kernel grouped {body.name} {name} M={m}"
+                acc = grouped_bit_equal(label, body, x_ops, w_ops, ws, as_, bias, k)
+                if not torch.equal(acc, harness.gemm_grouped(mxu, x_ops, w_ops, None, None,
+                                                             k=k, out="acc")):
+                    raise AssertionError(f"{label}: accumulator != grouped {mxu.name}")
+                ms = time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws, as_, k=k),
+                             10, flush)
+                mms = time_ms(lambda: harness.gemm_grouped(mxu, x_ops, w_ops, ws, as_, k=k),
+                              10, flush)
+                nbytes = (sum(t.numel() * t.element_size() for t in x_ops + w_ops)
+                          + 4 * g * (m + n) + 2 * g * m * n)
+                ops = 2.0 * g * m * n * k
+                msg = (f"[kernels] gemm_grouped_pop {body.name:15s} {name:4s} G={g} "
+                       f"M={m:3d} N={n} K={k}: bit-equal to plain and to {g} ungrouped "
+                       f"launches, == grouped {mxu.name}  kernel {ms:.4f} ms  grouped "
+                       f"{mxu.name} (tensor-core tile) {mms:.4f} ms  bound "
+                       f"{max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3:.4f} ms")
+                if m == TICK_ROWS:
+                    pms = time_ms(lambda: grouped_plain(body, x_ops, w_ops, ws, as_, None, k),
+                                  1)
+                    msg += f"  plain {pms:.2f} ms"
+                    cs = member_codes(body, x_ops, w_ops, k)
+                    xb = torch.stack([c[0] for c in cs]).to(torch.bfloat16)
+                    wb = torch.stack([c[1] for c in cs]).to(torch.bfloat16)
+                    lib = time_ms(lambda: torch.bmm(xb, wb), 10, flush)
+                    msg += f"  torch.bmm bf16 on the unpacked codes {lib:.4f} ms"
+                    del cs, xb, wb
+                    tick_lib += cfg.n_layers * lib
+                    tick_ms += cfg.n_layers * ms
+                    tick_mxu += cfg.n_layers * mms
+                    tick_pms += cfg.n_layers * pms
+                    tick_b += cfg.n_layers * nbytes
+                    tick_o += cfg.n_layers * ops
+                else:
+                    lib = int_mm_per_expert(member_codes(body, x_ops, w_ops, k), flush)
+                    msg += f"  torch._int_mm x {g} experts {lib:.4f} ms"
+                log(msg)
+                del x_ops, w_ops, ws, as_, bias, acc
+                torch.cuda.empty_cache()
         t_b, t_o = tick_b / HBM_BYTES_PER_S, tick_o / INT8_OPS_PER_S
-        log(f"[kernels] gemm_grouped (gemm_kernel) {body.name} deepseek-moe-16b "
+        log(f"[kernels] gemm_grouped_pop {body.name} deepseek-moe-16b "
             f"{SLOTS}-slot decode tick (28 x {{up, down}}): {tick_ms:.3f} ms (plain "
             f"{tick_pms:.1f} ms, bound {max(t_b, t_o) * 1e3:.4f} ms, "
-            f"{'bytes' if t_b >= t_o else 'operations'})")
+            f"{'bytes' if t_b >= t_o else 'operations'}; torch.bmm bf16 {tick_lib:.3f} "
+            f"ms); grouped {mxu.name} on the same operands {tick_mxu:.3f} ms")
+        if pop != "tgemm_popcount":
+            continue
+        rec = {"name": "gemm_grouped_pop", "max_abs_err": 0.0, "ms": tick_ms,
+               "plain_ms": tick_pms, "bound_ms": max(t_b, t_o) * 1e3,
+               "bound_by": "bytes" if t_b >= t_o else "operations",
+               "library_ms": tick_lib}
+    return rec
 
 
 def composed_codes(stack, k, bits, chunk=8192):
@@ -1047,9 +1147,9 @@ def phase_kernels(cfg, recs: list) -> None:
     check_paged(cfg, flush, gen, VERIFY_POS, slots=VERIFY_SLOTS)
     recs.append(check_flash(cfg, flush, gen, LONG_BUCKET))
     check_flash(cfg, flush, gen, LONG_PROMPT)
-    recs.append(check_grouped(flush, gen))
+    recs.extend(check_grouped(flush, gen))
     recs.append(check_grouped_planes(flush, gen))
-    check_grouped_first_version(flush, gen)
+    recs.append(check_grouped_popcount(flush, gen))
     log("[kernels] mxu accumulators == popcount accumulators at every shape")
 
 
@@ -1116,16 +1216,17 @@ def gemm_launches_per_call(cfg, impl="popcount", ctx=None) -> dict:
     """GEMM kernel -> its launches in one forward call (a prefill or a
     decode tick) under `ctx` (default: the `impl` formulation): one per
     layer that resolves to its body, and one grouped launch per expert
-    stack with a body (K11, or K10 over expert stacks for a plane body)."""
-    from repro_torch.kernels import dispatch
+    stack with a body, counted by the body's grouped launcher (K11, K10 over
+    expert stacks for a plane body, grouped K3 / K4, K7 or K8)."""
+    from repro_torch.kernels import KERNELS, dispatch
     from repro_torch.models.common import ModelCtx, operating_point
     ctx = ctx or ModelCtx(impl=impl)
+    grouped_name = {k: n for n, k in KERNELS.items()}
     out = {}
     for spec in linear_specs(cfg):
         body = dispatch.lookup(operating_point(spec, ctx)).body
         if body is not None:
-            name = (("gemm_grouped_planes" if body.w_stack else "gemm_grouped")
-                    if spec.experts else body.name)
+            name = grouped_name[body.grouped] if spec.experts else body.name
             out[name] = out.get(name, 0) + 1
     return out
 
@@ -1295,11 +1396,16 @@ def planes_and_spec(cfgs, packed, twins, outs, mixed, device_name, total) -> Non
 
 #: MoE serve runs: (arch, policy, layers; None = the arch's full depth)
 MOE_RUNS = (("deepseek-moe-16b", "het", None), ("deepseek-moe-16b", "int8", None),
+            ("deepseek-moe-16b", "wt-a8", None), ("deepseek-moe-16b", "ternary", None),
             ("phi3.5-moe-42b-a6.6b", "het", 4), ("deepseek-moe-16b", "w-ternary", 4))
-#: runs beside a MoE run's direct one, on the same weights packed with the
-#: plane twin: (impl, spec_draft); each must emit the direct run's tokens
-MOE_PLANE_RUNS = {MOE_RUNS[0]: (("planes", None), ("popcount", "planes:1")),
-                  MOE_RUNS[2]: (("planes", None),)}
+#: runs beside a MoE run's direct (popcount) one, on the same weights (packed
+#: with the plane twin for planes or a draft): (impl, spec_draft); each
+#: must emit the direct run's tokens
+MOE_BESIDE_RUNS = {MOE_RUNS[0]: (("planes", None), ("popcount", "planes:1")),
+                   MOE_RUNS[3]: (("mxu", None),),
+                   MOE_RUNS[4]: (("planes", None),)}
+#: MoE runs whose 4-slot decode tick is profiled, each under its impls
+MOE_PROFILED = {MOE_RUNS[0]: ("popcount", "planes"), MOE_RUNS[2]: ("popcount",)}
 #: dense archs at full width and cut depth: (arch, policy, layers)
 DENSE_RUNS = (("qwen1.5-32b", "ternary", 4), ("nemotron-4-340b", "ternary", 2))
 
@@ -1307,8 +1413,8 @@ DENSE_RUNS = (("qwen1.5-32b", "ternary", 4), ("nemotron-4-340b", "ternary", 2))
 def moe_checks(label, cfg, impl="popcount", spec_draft=None):
     """The MoE run's own checks: the routing counters add up, and the
     GEMM launches are exactly one per layer per forward call, one grouped
-    launch (K11, or K10 over expert stacks) per expert projection, none of
-    the ungrouped bodies per expert. A speculative run's forward calls are
+    launch per expert projection on its form's count, none of the
+    ungrouped bodies per expert. A speculative run's forward calls are
     its prefills and verify steps under the run's context and its draft
     steps under the draft's; the draft steps are counted by the grouped
     plane launches, which only they make."""
@@ -1344,19 +1450,21 @@ def moe_checks(label, cfg, impl="popcount", spec_draft=None):
 
 def phase_moe(device_name, launches) -> None:
     """MoE serving: deepseek-moe-16b at full width and depth under het
-    (K11 with the K9 body, and K1/K8/K9/K5) and int8 (K11 with K1),
-    phi3.5-moe-42b-a6.6b at full width and 4 layers under het (its 32 bf16
-    layers are ~84 GB before packing: cut), and deepseek under w-ternary
-    (weight-only experts, no K11) at 4 layers. Each from the port's seeded
-    init, packed block by block, on the serve CLI's prompts: 4-slot tokens
-    == 1-slot tokens, routing counters printed and checked, GEMM launches
-    counted exactly. Deepseek het (full depth) is also served with `--impl
-    planes` and with `--spec-draft planes:1 --spec-k 4`, phi3.5-moe het with
+    (K11 with the K9 body, and K1/K8/K9/K5), int8 (K11 with K1), wt-a8
+    (grouped K8) and ternary (grouped K4), phi3.5-moe-42b-a6.6b at full
+    width and 4 layers under het (its 32 bf16 layers are ~84 GB before
+    packing: cut), and deepseek under w-ternary (weight-only experts, no
+    K11) at 4 layers. Each from the port's seeded init, packed block by
+    block, on the serve CLI's prompts: 4-slot tokens == 1-slot tokens,
+    routing counters printed and checked, GEMM launches counted exactly.
+    Beside a direct run, on its weights (MOE_BESIDE_RUNS): deepseek het
+    with `--impl planes` and with `--spec-draft planes:1 --spec-k 4`,
+    deepseek ternary with `--impl mxu` (grouped K7), phi3.5-moe het with
     `--impl planes` (K10 over expert stacks): tokens == the direct run's,
     4-slot == 1-slot, launches counted exactly. Then deepseek at 4 layers
-    under each policy / impl that sends the expert projections to the
-    grouped gemm_kernel bodies (K3, K4, K7, K8); then one profiled 4-slot
-    decode tick of deepseek het, direct and under `--impl planes`."""
+    under each policy that sends the expert projections to the grouped
+    gemm_kernel bodies (K3, K4); one profiled 4-slot decode tick of deepseek
+    het, direct and under `--impl planes`, and of deepseek wt-a8."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.common import ModelCtx
@@ -1367,9 +1475,10 @@ def phase_moe(device_name, launches) -> None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         gen = torch.Generator(device="cuda").manual_seed(3)
         t0 = time.perf_counter()
-        plane_runs = MOE_PLANE_RUNS.get((arch, policy, layers), ()) if impl == "popcount" else ()
-        sparams, train_b = transformer.init_for_serve(cfg, gen, "cuda",
-                                                      plane_twins=bool(plane_runs))
+        run = (arch, policy, layers)
+        beside = MOE_BESIDE_RUNS.get(run, ()) if impl == "popcount" else ()
+        twins = any(b_impl == "planes" or draft for b_impl, draft in beside)
+        sparams, train_b = transformer.init_for_serve(cfg, gen, "cuda", plane_twins=twins)
         torch.cuda.synchronize()
         label = (f"{arch} policy={policy}" + (f" impl={impl}" if impl != "popcount"
                                               else "") + f" ({cfg.n_layers} layers)")
@@ -1381,25 +1490,24 @@ def phase_moe(device_name, launches) -> None:
         out = served(label, cfg, sparams, impl, reqs, device_name, launches,
                      on_done=moe_checks(label, cfg, impl))
         same_as_one_slot(label, cfg, sparams, impl, reqs, out)
-        for p_impl, draft in plane_runs:
-            plabel = (f"{arch} policy={policy} " + (f"spec-draft={draft} spec-k={SPEC_K}"
-                                                     if draft else f"impl={p_impl}")
+        for b_impl, draft in beside:
+            blabel = (f"{arch} policy={policy} " + (f"spec-draft={draft} spec-k={SPEC_K}"
+                                                     if draft else f"impl={b_impl}")
                       + f" ({cfg.n_layers} layers)")
-            got = served(plabel, cfg, sparams, p_impl, reqs, device_name, launches,
-                         spec_draft=draft, on_done=moe_checks(plabel, cfg, p_impl, draft))
+            got = served(blabel, cfg, sparams, b_impl, reqs, device_name, launches,
+                         spec_draft=draft, on_done=moe_checks(blabel, cfg, b_impl, draft))
             if got != out:
-                raise AssertionError(f"{plabel}: tokens != the direct run's tokens")
-            log(f"[moe] {plabel}: " + ("spec tokens == sequential tokens" if draft
-                                       else "planes tokens == direct-cell tokens"))
-            same_as_one_slot(plabel, cfg, sparams, p_impl, reqs, got, draft)
+                raise AssertionError(f"{blabel}: tokens != the direct run's tokens")
+            log(f"[moe] {blabel}: " + ("spec tokens == sequential tokens" if draft
+                                       else f"{b_impl} tokens == {impl} tokens"))
+            same_as_one_slot(blabel, cfg, sparams, b_impl, reqs, got, draft)
         toks = torch.from_numpy(reqs[0]).to("cuda")[None]
         logits, _ = transformer.prefill(sparams, toks, transformer.build_specs(cfg),
                                         ModelCtx())
         if logits.shape != (1, 1, cfg.vocab) or not torch.isfinite(logits).all():
             raise AssertionError(f"{label}: prefill logits {tuple(logits.shape)}")
-        if (arch, policy, layers) == MOE_RUNS[0]:
-            profile_tick(cfg, sparams, device_name)
-            profile_tick(cfg, sparams, device_name, "planes")
+        for p_impl in MOE_PROFILED.get(run, ()) if impl == "popcount" else ():
+            profile_tick(cfg, sparams, device_name, p_impl)
         del sparams
         torch.cuda.empty_cache()
 

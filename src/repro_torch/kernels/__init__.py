@@ -2,8 +2,8 @@
 counterpart of `repro.kernels`.
 
 harness    — the output-stationary packed GEMM template (csrc/gemm.cu), its
-             fused requant epilogue, and the grouped launch (K11, and K10
-             over expert stacks)
+             fused requant epilogue, and the grouped launch (K11, K10 over
+             expert stacks, grouped K3, K4, K7 and K8)
 i8gemm     — int8 x int8 body (__dp4a)
 bgemm      — binary bodies: XNOR+popcount, and ±1 unpack + int8 dot (mxu)
 tgemm      — ternary bodies: gated XNOR, trit unpack + int8 dot (mxu), and
@@ -30,7 +30,10 @@ BODIES = (i8gemm.I8_DOT, bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT,
 KERNELS = {
     **{body.name: body.kernel for body in BODIES},
     "gemm_grouped": harness.GEMM_GROUPED,
+    "gemm_grouped_pop": harness.GEMM_GROUPED_POP,
     "gemm_grouped_planes": harness.GEMM_GROUPED_PLANES,
+    "gemm_grouped_mxu": harness.GEMM_GROUPED_MXU,
+    "gemm_grouped_wt_i8a": harness.GEMM_GROUPED_WT_I8A,
     "paged_flash_decode": paged_attn.PAGED_DECODE,
     "flash_attention": flash_attn.FLASH_ATTN,
 }

@@ -8,15 +8,17 @@ Two formulations of the same integer dot:
                     `__popc(x ^ w)` mismatches (the dot is K -
                     2*mismatches), `pop_mma_kernel` above runs the b1
                     tensor cores' AND-popc on x, w and their complements
-                    (the dot is 2*agreements - K). The plain version is
+                    (the dot is 2*agreements - K); a grouped call runs
+                    the first-version `gemm_kernel`. The plain version is
                     `core.pack.binary_dot_words`.
   BINARY_MXU      — both sides unpacked to ±1 int8 and dotted (the
                     reference's MXU body; on the card BODY_BINARY_MXU runs
                     `bmxu_stream_kernel` up to 8 rows, __dp4a on weight
                     words unpacked in registers, and `bmxu_mma_kernel`
                     above, the int8 tensor cores on both sides unpacked in
-                    shared memory). The dot is integer-exact, so it equals
-                    BINARY_POPCOUNT's.
+                    shared memory; a grouped call runs `bmxu_mma_kernel`
+                    at every M, a 16-row tile up to 16 rows). The dot is
+                    integer-exact, so it equals BINARY_POPCOUNT's.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.core import pack
 
-from .harness import MacBody, gemm_kernel
+from .harness import GEMM_GROUPED_MXU, GEMM_GROUPED_POP, MacBody, gemm_kernel
 
 N_CHUNK = 4096   # bounds the plain versions' (M, N_CHUNK, K/32) temporaries
 
@@ -56,7 +58,7 @@ def binary_popcount_plain(x_ops, w_ops, k: int) -> torch.Tensor:
 
 BINARY_POPCOUNT = MacBody("bgemm_popcount", body_id=1, n_x=1, n_w=1,
                           k_per_q=pack.WORD, plain=binary_popcount_plain,
-                          kernel=gemm_kernel())
+                          kernel=gemm_kernel(), grouped=GEMM_GROUPED_POP)
 
 
 def binary_mxu_plain(x_ops, w_ops, k: int) -> torch.Tensor:
@@ -66,4 +68,5 @@ def binary_mxu_plain(x_ops, w_ops, k: int) -> torch.Tensor:
 
 
 BINARY_MXU = MacBody("bgemm_mxu", body_id=3, n_x=1, n_w=1, k_per_q=pack.WORD,
-                     plain=binary_mxu_plain, kernel=gemm_kernel())
+                     plain=binary_mxu_plain, kernel=gemm_kernel(),
+                     grouped=GEMM_GROUPED_MXU)

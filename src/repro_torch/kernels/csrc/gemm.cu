@@ -76,29 +76,28 @@
 // - Grouped (K11, `repro_gemm_grouped`: G GEMMs of one shape in one
 //   launch, every operand with a leading G axis: x (G, M, .), w (G, N, .)
 //   or (G, K, N), w_scale and bias (G, N), a_scale (G, M), out (G, M, N)),
-//   the int8, s4 and plane bodies run i8_mma_kernel / s4_mma_kernel /
-//   planes_mma_kernel at every M with blockIdx.z over the groups, on a
-//   16-row tile (BN = 128) up to G_SMALL_M = 16 rows and the 128-row one
-//   above. The MoE expert projections are G = E weight stacks at decode M =
-//   slots x capacity (16 for 4 slots): the weight bytes of all experts bound
-//   them. A plane stack (G, P, N, K/32) may be the leading-P slice of a
-//   (G, BITS, N, K/32) stack (the self-speculative draft's truncation): the
-//   kernel takes P, the plane stride and the member stride, so it reads the
-//   P live planes of each expert in place and the planes past P never.
-// - gemm_kernel runs the other grouped bodies: popcount (K3, K4), mxu (K7)
-//   and wt-i8a (K8). MoE archs served under --policy binary, ternary, mixed
-//   or wt-a8, or with --impl mxu, send every expert projection there. It is
-//   still the first version, the TPU grid with its
-//   sequential K axis turned into a loop inside the block: a block owns one
-//   BM x BN output tile, walks K in KT-word stages through shared memory
-//   (KT packed words = 1024 k for the popcount bodies, KT four-code words =
-//   128 k for the __dp4a bodies), and keeps its int32 accumulators in
-//   registers. Each warp owns one output column per lane and rows warp,
-//   warp+4, ... of the tile; rows past M are skipped warp-uniformly and
-//   columns past N are masked, so ragged M and N need no padding (the
-//   Pallas path pads M to 8); the grid's third dimension is the groups. It
-//   neither pipelines its loads (32-word stages, two barriers each) nor
-//   uses the tensor cores: its redesign for those MoE expert projections is
+//   the int8, s4, plane, mxu and wt-i8a bodies run i8_mma_kernel /
+//   s4_mma_kernel / planes_mma_kernel / bmxu_mma_kernel / tmxu_mma_kernel /
+//   wt_mma_kernel at every M with blockIdx.z over the groups, on a 16-row
+//   tile (BN = 128) up to G_SMALL_M = 16 rows and the 128-row one above.
+//   The MoE expert projections are G = E weight stacks at decode M = slots
+//   x capacity (16 for 4 slots): the weight bytes of all experts, and for
+//   the bit-plane bodies the weight codes each block unpacks, bound them.
+//   A plane stack (G, P, N, K/32) may be the leading-P slice of a (G, BITS,
+//   N, K/32) stack (the self-speculative draft's truncation): the kernel
+//   takes P, the plane stride and the member stride, so it reads the P live
+//   planes of each expert in place and the planes past P never.
+// - gemm_kernel runs the grouped popcount bodies (K3, K4), which MoE archs
+//   served under --policy binary, ternary or mixed reach. It is still the
+//   first version, the TPU grid with its sequential K axis turned into a
+//   loop inside the block: a block owns one BM x BN output tile, walks K in
+//   KT-word stages (KT packed words = 1024 k) through shared memory, and
+//   keeps its int32 accumulators in registers. Each warp owns one output
+//   column per lane and rows warp, warp+4, ... of the tile; rows past M are
+//   skipped warp-uniformly and columns past N are masked, so ragged M and N
+//   need no padding (the Pallas path pads M to 8); the grid's third
+//   dimension is the groups. It neither pipelines its loads (32-word
+//   stages, two barriers each) nor uses the tensor cores: its redesign is
 //   queued work.
 //
 // Exactness. The epilogue keeps the reference's order exactly and uses
@@ -119,7 +118,7 @@ namespace {
 
 constexpr int BM = 16;        // output rows per block
 constexpr int BN = 32;        // output columns per block (one per lane)
-constexpr int KT = 32;        // K stage, in 32-bit staged words
+constexpr int KT = 32;        // K stage, in packed words
 constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int RPT = BM / WARPS;  // rows per thread
@@ -127,8 +126,6 @@ constexpr int RPT = BM / WARPS;  // rows per thread
 enum { BODY_I8 = 0, BODY_BINARY = 1, BODY_TERNARY = 2, BODY_BINARY_MXU = 3,
        BODY_TERNARY_MXU = 4, BODY_TERNARY_W_I8A = 5, BODY_INT4_W_I8A = 6,
        BODY_PLANES_W4 = 7, BODY_PLANES_W8 = 8 };
-enum { F_I8, F_BITS, F_TRITS };
-enum { MAC_XNOR, MAC_GXNOR, MAC_DP4A };
 
 // One packed word of each plane of x and w: binary adds the mismatches
 // __popc(x ^ w) (dot = K - 2 * sum, pop_finish), ternary the gated XNOR's
@@ -149,102 +146,19 @@ __device__ __forceinline__ int pop_finish(int acc, int K) {
   return NP == 1 ? K - 2 * acc : acc;
 }
 
-template <int MAC> struct Mac;
-
-template <> struct Mac<MAC_XNOR> {
-  static constexpr int PLANES = 1, K_PER_WORD = 32;
-  __device__ static int mac(int acc, const uint32_t* x, const uint32_t* w) {
-    return pop_mac<1>(acc, x[0], 0u, w[0], 0u);
-  }
-  __device__ static int finish(int acc, int k) { return pop_finish<1>(acc, k); }
-};
-
-template <> struct Mac<MAC_GXNOR> {
-  static constexpr int PLANES = 2, K_PER_WORD = 32;
-  __device__ static int mac(int acc, const uint32_t* x, const uint32_t* w) {
-    return pop_mac<2>(acc, x[0], x[1], w[0], w[1]);
-  }
-  __device__ static int finish(int acc, int k) { return pop_finish<2>(acc, k); }
-};
-
-template <> struct Mac<MAC_DP4A> {
-  static constexpr int PLANES = 1, K_PER_WORD = 4;
-  __device__ static int mac(int acc, const uint32_t* x, const uint32_t* w) {
-    return __dp4a(static_cast<int>(x[0]), static_cast<int>(w[0]), acc);
-  }
-  __device__ static int finish(int acc, int) { return acc; }
-};
-
-// the bodies of gemm_kernel (the others run the kernels further down)
-template <int BODY> struct Body;
-template <> struct Body<BODY_BINARY>        { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_XNOR;  };
-template <> struct Body<BODY_TERNARY>       { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_GXNOR; };
-template <> struct Body<BODY_BINARY_MXU>    { static constexpr int XF = F_BITS,  WF = F_BITS,      MAC = MAC_DP4A;  };
-template <> struct Body<BODY_TERNARY_MXU>   { static constexpr int XF = F_TRITS, WF = F_TRITS,     MAC = MAC_DP4A;  };
-template <> struct Body<BODY_TERNARY_W_I8A> { static constexpr int XF = F_I8,    WF = F_TRITS,     MAC = MAC_DP4A;  };
-
-// K elements per stored 32-bit word of a (row-major) format
-template <int F> struct Fmt { static constexpr int K_PER_WORD = F == F_I8 ? 4 : 32; };
-
-// Bytes b0..b3 (each the low 8 bits of an int) as one little-endian word.
-__device__ __forceinline__ uint32_t word4(int b0, int b1, int b2, int b3) {
-  return (uint32_t)(b0 & 0xFF) | ((uint32_t)(b1 & 0xFF) << 8) |
-         ((uint32_t)(b2 & 0xFF) << 16) | ((uint32_t)(b3 & 0xFF) << 24);
-}
-
-// Four ±1 int8 values from four bits (1 encodes +1).
-__device__ __forceinline__ uint32_t unpack_bits4(uint32_t b) {
-  return word4((b & 1) ? 1 : -1, (b & 2) ? 1 : -1, (b & 4) ? 1 : -1, (b & 8) ? 1 : -1);
-}
-
-// Four trits {-1, 0, +1} as int8 from four mask bits and four sign bits.
-__device__ __forceinline__ uint32_t unpack_trits4(uint32_t m, uint32_t s) {
-  int v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    v[i] = ((m >> i) & 1) ? (((s >> i) & 1) ? -1 : 1) : 0;
-  return word4(v[0], v[1], v[2], v[3]);
-}
-
-// Stage words ku0 .. ku0+KT-1 (in the MAC's units) of rows r0 .. r0+R-1 of
-// one operand into dst[plane][row][word]. Rows past `nrows` and words past
-// K are zero: they are never read by the MAC loop (it stops at K) and a zero
-// row only feeds outputs that are never written.
-template <int F, int MAC, int P, int R>
+// Stage packed words kw0 .. kw0+KT-1 of rows r0 .. r0+R-1 of the NP planes
+// s0 (, s1) into dst[plane][row][word]. Rows past `nrows` and words past the
+// row's W words are zero: they are never read by the MAC loop (it stops at
+// K) and a zero row only feeds outputs that are never written.
+template <int NP, int R>
 __device__ __forceinline__ void stage_rows(uint32_t (*dst)[R][KT + 1],
                                            const uint32_t* s0, const uint32_t* s1,
-                                           int r0, int nrows, int ku0, int K,
-                                           int tid) {
-  constexpr int KPW = Fmt<F>::K_PER_WORD;          // k per source word
-  constexpr int KPU = Mac<MAC>::K_PER_WORD;        // k per staged word
-  const int W = K / KPW;                           // source words per row
-  if constexpr (KPW == KPU) {
-    // copy: packed words for the popcount MACs, int8 rows for __dp4a
-    for (int i = tid; i < R * KT; i += THREADS) {
-      const int r = i / KT, c = i % KT, kw = ku0 + c;
-      const bool ok = r < nrows && kw < W;
-      dst[0][r][c] = ok ? s0[(size_t)(r0 + r) * W + kw] : 0u;
-      if constexpr (P > 1) dst[1][r][c] = ok ? s1[(size_t)(r0 + r) * W + kw] : 0u;
-    }
-  } else {
-    // unpack: each source word becomes Q words of four int8 values
-    constexpr int Q = KPW / KPU;
-    constexpr int SW = KT / Q;                      // source words per stage
-    for (int i = tid; i < R * SW; i += THREADS) {
-      const int r = i / SW, c = i % SW, kw = ku0 / Q + c;
-      const bool ok = r < nrows && kw < W;
-      const size_t off = (size_t)(r0 + r) * W + kw;
-      const uint32_t a = ok ? s0[off] : 0u;
-      uint32_t b = 0u;
-      if constexpr (F == F_TRITS) b = ok ? s1[off] : 0u;
-#pragma unroll
-      for (int j = 0; j < Q; ++j) {
-        uint32_t v;
-        if constexpr (F == F_BITS) v = unpack_bits4(a >> (4 * j));
-        else v = unpack_trits4(a >> (4 * j), b >> (4 * j));
-        dst[0][r][c * Q + j] = ok ? v : 0u;
-      }
-    }
+                                           int r0, int nrows, int kw0, int W, int tid) {
+  for (int i = tid; i < R * KT; i += THREADS) {
+    const int r = i / KT, c = i % KT, kw = kw0 + c;
+    const bool ok = r < nrows && kw < W;
+    dst[0][r][c] = ok ? s0[(size_t)(r0 + r) * W + kw] : 0u;
+    if constexpr (NP > 1) dst[1][r][c] = ok ? s1[(size_t)(r0 + r) * W + kw] : 0u;
   }
 }
 
@@ -266,7 +180,10 @@ __device__ __forceinline__ void store_out(void* out, int out_acc, size_t idx,
   static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
 }
 
-template <int BODY>
+// K3 (NP = 1) / K4 (NP = 2) grouped: bits or (mask, sign) trits on both
+// sides, x (G, M, K/32) and w (G, N, K/32) words a plane, x1 / w1 the sign
+// planes
+template <int NP>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
             const uint32_t* __restrict__ w0, const uint32_t* __restrict__ w1,
@@ -274,8 +191,6 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
             const float* __restrict__ bias, void* __restrict__ out, int out_acc,
             int M, int N, int K, long long x_group_words,
             long long w_group_words) {
-  using B = Body<BODY>;
-  using C = Mac<B::MAC>;
   // this block's group member: offset every operand by the group's stride
   const long long g = blockIdx.z;
   x0 += g * x_group_words;
@@ -287,38 +202,32 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
   if (bias) bias += g * N;
   const size_t obase = (size_t)g * M * N;
   // +1 word of padding: lane-strided reads of ws hit 32 distinct banks
-  __shared__ uint32_t xs[C::PLANES][BM][KT + 1];
-  __shared__ uint32_t ws[C::PLANES][BN][KT + 1];
+  __shared__ uint32_t xs[NP][BM][KT + 1];
+  __shared__ uint32_t ws[NP][BN][KT + 1];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int rows = min(BM, M - m0);
-  const int KU = K / C::K_PER_WORD;                // staged words per row
+  const int W = K / 32;                            // packed words per row
 
   int acc[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0;
 
-  for (int ku0 = 0; ku0 < KU; ku0 += KT) {
-    stage_rows<B::XF, B::MAC, C::PLANES, BM>(xs, x0, x1, m0, rows, ku0, K, tid);
-    stage_rows<B::WF, B::MAC, C::PLANES, BN>(ws, w0, w1, n0, min(BN, N - n0), ku0, K,
-                                             tid);
+  for (int kw0 = 0; kw0 < W; kw0 += KT) {
+    stage_rows<NP, BM>(xs, x0, x1, m0, rows, kw0, W, tid);
+    stage_rows<NP, BN>(ws, w0, w1, n0, min(BN, N - n0), kw0, W, tid);
     __syncthreads();
 
-    const int kt = min(KT, KU - ku0);
+    const int kt = min(KT, W - kw0);
     for (int c = 0; c < kt; ++c) {
-      uint32_t wv[C::PLANES];
-#pragma unroll
-      for (int p = 0; p < C::PLANES; ++p) wv[p] = ws[p][lane][c];
+      const uint32_t wa = ws[0][lane][c], wb = NP > 1 ? ws[NP - 1][lane][c] : 0u;
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const int r = warp + i * WARPS;
-        if (r < rows) {                         // warp-uniform
-          uint32_t xv[C::PLANES];
-#pragma unroll
-          for (int p = 0; p < C::PLANES; ++p) xv[p] = xs[p][r][c];
-          acc[i] = C::mac(acc[i], xv, wv);
-        }
+        if (r < rows)                           // warp-uniform
+          acc[i] = pop_mac<NP>(acc[i], xs[0][r][c], NP > 1 ? xs[NP - 1][r][c] : 0u,
+                               wa, wb);
       }
     }
     __syncthreads();
@@ -331,7 +240,7 @@ gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
     const int r = warp + i * WARPS;
     if (r >= rows) continue;
     const int m = m0 + r;
-    store_out(out, out_acc, obase + (size_t)m * N + n, C::finish(acc[i], K),
+    store_out(out, out_acc, obase + (size_t)m * N + n, pop_finish<NP>(acc[i], K),
               w_scale, a_scale, bias, m, n);
   }
 }
@@ -1160,13 +1069,14 @@ i8_stream_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Large M: one int8 tensor-core tile for K1, K7, K9, K10 and K11
+// Large M, and every grouped body but K3 / K4: one int8 tensor-core tile
 // ---------------------------------------------------------------------------
 
 // A BM x BN output tile of warps of 32 x 32 (16 x 32 at BM = 16) on
 // mma.sync m16n8k32 s8 with ldmatrix fragments: BM = 128 is 8 warps, 4
 // along M x 2 along N (BN = 64); BM = 16 is 4 warps along N (BN = 128),
-// for K11's few rows per expert. Measured on the card at the
+// for a grouped launch's few rows per expert (K11, and K7, K8, K10 over
+// expert stacks). Measured on the card at the
 // deepseek-moe-16b decode tick (16 rows an expert): with 8 warps along N
 // (BN = 256) the 128-row tile took 2.7x and a 32-row one 1.09x the 16-row
 // tile's time (the padding rows they stage and multiply); the 16-row tile
@@ -1191,10 +1101,15 @@ i8_stream_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 //   WK_BITS / WK_TRITS  (N, K/32) bit words, one plane or (mask, sign): one
 //              word of each per thread -> 32 ±1 or trit codes (mxu_codes)
 //   WK_WT      K8: (mask, sign) trit words against int8 activations: as
-//              WK_TRITS, then put back in k order (interleave32), since its
-//              activations are cp.async'd into As in k order
+//              WK_TRITS; at BM = 128 then put back in k order
+//              (interleave32), since its activations are cp.async'd into As
+//              in k order. At BM = 16 the 16 activation rows are put in
+//              mxu_codes' order instead (Tc::WT_ACTS), not the BN = 128
+//              weight columns: 8x fewer byte permutes a stage
 // The int8 bodies cp.async their activations straight into the ring's
-// tile As. K7's activations are bits or trits too: the ring holds their raw
+// tile As (K8 at BM = 16 into the ring, then permuted each stage into one
+// padded As tile). K7's activations are bits or trits too: the ring holds
+// their raw
 // words (16 bytes a row and plane per stage) and, beside the weight stage,
 // each stage unpacks them into one padded As tile (mxu_codes; zero codes
 // past K, so the padded weight codes add nothing). K7 keeps both sides in
@@ -1204,15 +1119,27 @@ i8_stream_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 // codes, once per BM rows); K7's unpack (3 or 5 ops per 4 codes, both
 // sides), the K1 transpose (~6) and the K9 unpack (~2) cost less.
 //
-// Groups (K11): blockIdx.z is the member of a grouped launch, and each
-// block offsets x, w, w_scale (N), a_scale (M), bias (N) and out (M x N) by
-// it (group_member); an ungrouped launch is the one member z = 0.
+// Grouped K7 and K8 at 16 rows (the MoE decode tick) are not bound by
+// their bytes or their codes: measured on the card at deepseek-moe-16b's
+// tick, a stage takes ~2 us a block whether it brings 2 KB (binary), 4 KB
+// (trits) or 8 KB (K11's s4), so binary K7, ternary K7 and K8 take
+// 5.4x, 3.3x and 3.1x their byte bounds, under K11's s4 tile. What moved
+// nothing or lost (chip_ab.py, PERF.md): 2 or 8 warps, 4-8 ring stages,
+// 5-6 blocks an SM (they spill), trit codes by prmt's sign mode (4 ops a
+// word, not 5); K8's permuted activations gained 3-7 %, kept.
+//
+// Groups (K11, K10 over expert stacks, grouped K7 and K8): blockIdx.z is
+// the member of a grouped launch, and each block offsets x, w, w_scale (N),
+// a_scale (M), bias (N) and out (M x N) by it (group_member); an ungrouped
+// launch is the one member z = 0. A trit operand's sign plane lies a fixed
+// word distance from its mask plane (pstride, xpstride: two contiguous
+// tensors of one shape), the same for every member.
 constexpr int T_THREADS = 256;     // 8 warps (4 at BM = 16)
 constexpr int T_BM = 128;          // rows of the tile every body runs above SMALL_M
 constexpr int T_KS = 128;          // k per stage
 constexpr int T_STAGES = 3;
 constexpr int T_LD = T_KS + 16;    // padded row, bytes: ldmatrix's 8 rows in distinct banks
-// rows up to which a grouped launch (K11) takes the 16-row tile
+// rows up to which a grouped launch takes the 16-row tile
 constexpr int G_SMALL_M = 16;
 
 enum { WK_I8, WK_S4, WK_PLANES4, WK_PLANES8, WK_BITS, WK_TRITS, WK_WT };
@@ -1222,11 +1149,16 @@ template <int WK, int BM> struct Tc {
   static constexpr int WARPS_M = BM / (16 * MT);         // 4 | 1
   static constexpr int THREADS = BM == 16 ? 128 : T_THREADS;
   static constexpr int WARPS_N = THREADS / 32 / WARPS_M;
-  static constexpr int BN = 32 * WARPS_N;                // 64 | 256
+  static constexpr int BN = 32 * WARPS_N;                // 64 | 128
   static_assert(WARPS_M * 16 * MT == BM && WARPS_M * WARPS_N * 32 == THREADS,
                 "warp grid");
   // activation bit planes staged raw (0: int8 rows, cp.async'd into As)
   static constexpr int XP = WK == WK_BITS ? 1 : WK == WK_TRITS ? 2 : 0;
+  // K8 at 16 rows: the int8 activation stage is permuted into mxu_codes'
+  // order in its own As tile, and the weight codes stay in that order
+  static constexpr bool WT_ACTS = WK == WK_WT && BM < BN;
+  // the stage's activation codes are written into their own As tile
+  static constexpr bool ACODES = XP > 0 || WT_ACTS;
   // weight bit planes staged raw (planes: the stack's BITS)
   static constexpr int WP = WK == WK_PLANES4 ? 4 : WK == WK_PLANES8 ? 8
                             : WK == WK_TRITS || WK == WK_WT ? 2 : 1;
@@ -1238,7 +1170,7 @@ template <int WK, int BM> struct Tc {
                              : WP * BN * (T_KS / 8);
   // a ring stage of activations: raw bit words, or the int8 tile itself
   static constexpr int ARAW = XP ? XP * BM * (T_KS / 8) : BM * T_LD;
-  static constexpr int SMEM = T_STAGES * (ARAW + RAW) + (XP ? BM * T_LD : 0) + BN * T_LD;
+  static constexpr int SMEM = T_STAGES * (ARAW + RAW) + (ACODES ? BM * T_LD : 0) + BN * T_LD;
 };
 
 struct TcArgs {
@@ -1382,7 +1314,7 @@ __device__ __forceinline__ void weights_to_codes(const TcArgs& a, const uint8_t*
           pw[p] = (T::BITS == 0 || p < a.np) ? Ws[(p * BN + c) * 4 + e] : 0u;
         if constexpr (T::BITS) {
           compose_word<T::BITS, T::BITS>(pw, cw);
-        } else if constexpr (WK == WK_WT) {
+        } else if constexpr (WK == WK_WT && !T::WT_ACTS) {
           uint32_t t[8];
           mxu_codes<2>(pw, t);
           interleave32<true>(t, cw);
@@ -1446,6 +1378,24 @@ __device__ __forceinline__ void acts_to_codes(const TcArgs& a, const uint8_t* ra
   }
 }
 
+// K8 at 16 rows: the stage's int8 activation rows (k order, zero past K
+// and M) -> As in mxu_codes' k-interleaved order
+template <int WK, int BM>
+__device__ __forceinline__ void acts_to_interleaved(const uint8_t* raw, uint8_t* As,
+                                                    int tid) {
+  for (int i = tid; i < BM * 4; i += Tc<WK, BM>::THREADS) {
+    const int r = i >> 2, e = i & 3;
+    const uint4* src = reinterpret_cast<const uint4*>(raw + r * T_LD + 32 * e);
+    const uint4 p = src[0], q = src[1];
+    const uint32_t v[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+    uint32_t t[8];
+    interleave32<false>(v, t);
+    uint4* d = reinterpret_cast<uint4*>(As + r * T_LD + 32 * e);
+    d[0] = make_uint4(t[0], t[1], t[2], t[3]);
+    d[1] = make_uint4(t[4], t[5], t[6], t[7]);
+  }
+}
+
 template <int WK, int BM>
 __device__ __forceinline__ void mma_tile(const TcArgs& a) {
   using T = Tc<WK, BM>;
@@ -1454,8 +1404,8 @@ __device__ __forceinline__ void mma_tile(const TcArgs& a) {
   uint8_t* Ring = smem;                                  // [S][ARAW]
   constexpr int S = T_STAGES;
   uint8_t* Raw = smem + S * T::ARAW;                     // [S][RAW]
-  uint8_t* As = T::XP ? Raw + S * T::RAW : Ring;         // K7: one [BM][LD] tile
-  uint8_t* Bc = Raw + S * T::RAW + (T::XP ? BM * T_LD : 0);   // [BN][LD]
+  uint8_t* As = T::ACODES ? Raw + S * T::RAW : Ring;     // K7, K8 at 16 rows: [BM][LD]
+  uint8_t* Bc = Raw + S * T::RAW + (T::ACODES ? BM * T_LD : 0);   // [BN][LD]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % T::WARPS_M, wn = warp / T::WARPS_M;
@@ -1505,6 +1455,8 @@ __device__ __forceinline__ void mma_tile(const TcArgs& a) {
     __syncthreads();                      // ... everyone's; the last stage is consumed
     if constexpr (T::XP)
       acts_to_codes<WK, BM>(a, Ring + buf * T::ARAW, As, st * T_KS, tid);
+    else if constexpr (T::WT_ACTS)
+      acts_to_interleaved<WK, BM>(Ring + buf * T::ARAW, As, tid);
     weights_to_codes<WK, BM>(a, Raw + buf * T::RAW, Bc, tid);
     {
       const int nx = st + S - 1;          // into the buffer the last stage freed
@@ -1512,7 +1464,7 @@ __device__ __forceinline__ void mma_tile(const TcArgs& a) {
       cp_async_commit();
     }
     __syncthreads();                      // the code tiles are complete
-    const uint8_t* A = T::XP ? As : Ring + buf * T::ARAW;
+    const uint8_t* A = T::ACODES ? As : Ring + buf * T::ARAW;
 #pragma unroll
     for (int ks = 0; ks < T_KS / 32; ++ks) {
       uint32_t af[MT][4], bf[4][2];
@@ -1553,8 +1505,9 @@ __device__ __forceinline__ void mma_tile(const TcArgs& a) {
       }
 }
 
-// one kernel name per body, so that its SASS can be checked on its own; K1,
-// K9 and K10 take a group index (K11, K10 over expert stacks) and a row tile
+// one kernel name per body, so that its SASS can be checked on its own;
+// each takes a group index (K11, K10 over expert stacks, grouped K7 and K8)
+// and a row tile
 template <int BM>
 __global__ void __launch_bounds__(Tc<WK_I8, BM>::THREADS, 512 / Tc<WK_I8, BM>::THREADS)
 i8_mma_kernel(TcArgs a) {
@@ -1573,14 +1526,20 @@ __global__ void __launch_bounds__(Tc<planes_wk<BITS>(), BM>::THREADS,
 planes_mma_kernel(TcArgs a) {
   mma_tile<planes_wk<BITS>(), BM>(group_member(a));
 }
-__global__ void __launch_bounds__(T_THREADS, 2) bmxu_mma_kernel(TcArgs a) {
-  mma_tile<WK_BITS, T_BM>(a);
+template <int BM>
+__global__ void __launch_bounds__(Tc<WK_BITS, BM>::THREADS, 512 / Tc<WK_BITS, BM>::THREADS)
+bmxu_mma_kernel(TcArgs a) {
+  mma_tile<WK_BITS, BM>(group_member(a));
 }
-__global__ void __launch_bounds__(T_THREADS, 2) tmxu_mma_kernel(TcArgs a) {
-  mma_tile<WK_TRITS, T_BM>(a);
+template <int BM>
+__global__ void __launch_bounds__(Tc<WK_TRITS, BM>::THREADS, 512 / Tc<WK_TRITS, BM>::THREADS)
+tmxu_mma_kernel(TcArgs a) {
+  mma_tile<WK_TRITS, BM>(group_member(a));
 }
-__global__ void __launch_bounds__(T_THREADS, 2) wt_mma_kernel(TcArgs a) {
-  mma_tile<WK_WT, T_BM>(a);
+template <int BM>
+__global__ void __launch_bounds__(Tc<WK_WT, BM>::THREADS, 512 / Tc<WK_WT, BM>::THREADS)
+wt_mma_kernel(TcArgs a) {
+  mma_tile<WK_WT, BM>(group_member(a));
 }
 
 // ---------------------------------------------------------------------------
@@ -1909,8 +1868,8 @@ int launch_mxu(const void* x0, const void* x1, const void* w0, const void* w1,
   a.xpstride = xps;
   a.xvec = kw % 4 == 0 && xps % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.wvec = wvec;
-  if constexpr (NP == 1) return launch_mma<WK_BITS, T_BM>(bmxu_mma_kernel, a, 1, stream);
-  else return launch_mma<WK_TRITS, T_BM>(tmxu_mma_kernel, a, 1, stream);
+  if constexpr (NP == 1) return launch_mma<WK_BITS, T_BM>(bmxu_mma_kernel<T_BM>, a, 1, stream);
+  else return launch_mma<WK_TRITS, T_BM>(tmxu_mma_kernel<T_BM>, a, 1, stream);
 }
 
 // K3 / K4: bits (NP = 1) or (mask, sign) trit planes (NP = 2) on both
@@ -1969,7 +1928,7 @@ int launch_wt(const void* x0, const void* w0, const void* w1, const float* w_sca
   a.pstride = wps;
   a.xvec = 1;                 // K % 32 == 0: every row starts 16-byte aligned
   a.wvec = wvec;
-  return launch_mma<WK_WT, T_BM>(wt_mma_kernel, a, 1, stream);
+  return launch_mma<WK_WT, T_BM>(wt_mma_kernel<T_BM>, a, 1, stream);
 }
 
 template <int MS>
@@ -2109,6 +2068,42 @@ int launch_grouped_tc(int body, int groups, const void* x0, const void* w0,
              : launch_mma<WK_S4, T_BM>(s4_mma_kernel<T_BM>, a, groups, stream);
 }
 
+// The K7 / K8 kernel of a row tile
+template <int WK, int BM> auto bits_mma_kernel() {
+  if constexpr (WK == WK_BITS) return bmxu_mma_kernel<BM>;
+  else if constexpr (WK == WK_TRITS) return tmxu_mma_kernel<BM>;
+  else return wt_mma_kernel<BM>;
+}
+
+// K7 (WK_BITS, WK_TRITS) and K8 (WK_WT) grouped: `groups` GEMMs of one shape
+// in one launch of the tensor-core tile, blockIdx.z the member; x0 / w0
+// advance by xg / wg bytes from one member to the next, and the sign planes
+// x1 / w1 (trits) lie a fixed distance from them, the same for every
+// member. The rows as K11's: the 16-row tile up to G_SMALL_M, 128 above.
+template <int WK>
+int launch_grouped_bits(int groups, const void* x0, const void* x1, const void* w0,
+                        const void* w1, const float* w_scale, const float* a_scale,
+                        const float* bias, void* out, int out_acc, int M, int N, int K,
+                        long long xg, long long wg, cudaStream_t stream) {
+  constexpr int XP = Tc<WK, T_BM>::XP, WP = Tc<WK, T_BM>::WP;
+  const auto xa = reinterpret_cast<uintptr_t>(x0), wa = reinterpret_cast<uintptr_t>(w0);
+  if (K % 32 || (XP == 2 && !x1) || (WP == 2 && !w1)) return (int)cudaErrorInvalidValue;
+  if (xa % 4 || wa % 4 || xg % 4 || wg % 4) return (int)cudaErrorMisalignedAddress;
+  // K8's activation rows are cp.async'd 16 bytes at a time, as ungrouped
+  if (WK == WK_WT && (xa % 16 || xg % 16)) return (int)cudaErrorMisalignedAddress;
+  TcArgs a = tc_args(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.xg = xg;
+  a.wg = wg;
+  a.pstride = WP == 2 ? words_between(w0, w1) : 0;
+  a.xpstride = XP == 2 ? words_between(x0, x1) : 0;
+  const int kw = K / 32;
+  a.xvec = WK == WK_WT || (kw % 4 == 0 && a.xpstride % 4 == 0 && xa % 16 == 0 && xg % 16 == 0);
+  a.wvec = kw % 4 == 0 && a.pstride % 4 == 0 && wa % 16 == 0 && wg % 16 == 0;
+  return M <= G_SMALL_M
+             ? launch_mma<WK, 16>(bits_mma_kernel<WK, 16>(), a, groups, stream)
+             : launch_mma<WK, T_BM>(bits_mma_kernel<WK, T_BM>(), a, groups, stream);
+}
+
 }  // namespace
 
 extern "C" void repro_gemm_tile(int* bm, int* bn, int* kt) {
@@ -2117,35 +2112,20 @@ extern "C" void repro_gemm_tile(int* bm, int* bn, int* kt) {
   *kt = KT;
 }
 
-// One launch of gemm_kernel over `groups` GEMMs (groups = 1: an ungrouped
-// call of the bodies that still run it) on `stream`; returns the launch's
-// cudaError_t.
-static int launch(int body, int groups, const void* x0, const void* x1,
-                  const void* w0, const void* w1, const float* w_scale,
-                  const float* a_scale, const float* bias, void* out,
-                  int out_acc, int M, int N, int K, long long x_group_words,
-                  long long w_group_words, cudaStream_t stream) {
+// K3 / K4 grouped: one launch of gemm_kernel over `groups` GEMMs on
+// `stream`; returns the launch's cudaError_t.
+static int launch_grouped_pop(int body, int groups, const void* x0, const void* x1,
+                              const void* w0, const void* w1, const float* w_scale,
+                              const float* a_scale, const float* bias, void* out,
+                              int out_acc, int M, int N, int K, long long x_group_words,
+                              long long w_group_words, cudaStream_t stream) {
+  if (K % 32 || (body == BODY_TERNARY && (!x1 || !w1))) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, groups);
-  const auto* a0 = static_cast<const uint32_t*>(x0);
-  const auto* a1 = static_cast<const uint32_t*>(x1);
-  const auto* b0 = static_cast<const uint32_t*>(w0);
-  const auto* b1 = static_cast<const uint32_t*>(w1);
-#define LAUNCH(ID)                                                            \
-  case ID:                                                                    \
-    gemm_kernel<ID><<<grid, THREADS, 0, stream>>>(                            \
-        a0, a1, b0, b1, w_scale, a_scale, bias, out, out_acc, M, N, K,        \
-        x_group_words, w_group_words);                                        \
-    break;
-  switch (body) {
-    LAUNCH(BODY_BINARY)
-    LAUNCH(BODY_TERNARY)
-    LAUNCH(BODY_BINARY_MXU)
-    LAUNCH(BODY_TERNARY_MXU)
-    LAUNCH(BODY_TERNARY_W_I8A)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LAUNCH
+  auto* kernel = body == BODY_BINARY ? gemm_kernel<1> : gemm_kernel<2>;
+  kernel<<<grid, THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(x0), static_cast<const uint32_t*>(x1),
+      static_cast<const uint32_t*>(w0), static_cast<const uint32_t*>(w1), w_scale,
+      a_scale, bias, out, out_acc, M, N, K, x_group_words, w_group_words);
   return (int)cudaGetLastError();
 }
 
@@ -2196,8 +2176,7 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
       return launch_pop<2>(x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc, M, N, K,
                            stream);
     default:
-      return launch(body, 1, x0, x1, w0, w1, w_scale, a_scale, bias, out, out_acc,
-                    M, N, K, 0, 0, stream);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -2208,8 +2187,8 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
 // w_plane_stride: the live planes P of a plane-stacked weight (G, P, N,
 // K/32) and the words between two planes of a member (ignored by the other
 // bodies); the member stride may exceed P planes (a leading-P slice of a
-// deeper stack). The int8, s4 and plane bodies run the tensor-core tile, the
-// others gemm_kernel.
+// deeper stack). Every body but the popcount ones (K3, K4: gemm_kernel)
+// runs the tensor-core tile.
 extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
                                   const void* x1, const void* w0,
                                   const void* w1, const float* w_scale,
@@ -2228,9 +2207,27 @@ extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
         groups, x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K, w_planes,
         w_plane_stride, 4 * x_group_words, 4 * w_group_words, stream);
   }
-  if (body == BODY_I8 || body == BODY_INT4_W_I8A)
-    return launch_grouped_tc(body, groups, x0, w0, w_scale, a_scale, bias, out, out_acc,
-                             M, N, K, 4 * x_group_words, 4 * w_group_words, stream);
-  return launch(body, groups, x0, x1, w0, w1, w_scale, a_scale, bias, out,
-                out_acc, M, N, K, x_group_words, w_group_words, stream);
+  const long long xg = 4 * x_group_words, wg = 4 * w_group_words;
+  switch (body) {
+    case BODY_I8:
+    case BODY_INT4_W_I8A:
+      return launch_grouped_tc(body, groups, x0, w0, w_scale, a_scale, bias, out,
+                               out_acc, M, N, K, xg, wg, stream);
+    case BODY_BINARY_MXU:
+      return launch_grouped_bits<WK_BITS>(groups, x0, x1, w0, w1, w_scale, a_scale, bias,
+                                          out, out_acc, M, N, K, xg, wg, stream);
+    case BODY_TERNARY_MXU:
+      return launch_grouped_bits<WK_TRITS>(groups, x0, x1, w0, w1, w_scale, a_scale,
+                                           bias, out, out_acc, M, N, K, xg, wg, stream);
+    case BODY_TERNARY_W_I8A:
+      return launch_grouped_bits<WK_WT>(groups, x0, x1, w0, w1, w_scale, a_scale, bias,
+                                        out, out_acc, M, N, K, xg, wg, stream);
+    case BODY_BINARY:
+    case BODY_TERNARY:
+      return launch_grouped_pop(body, groups, x0, x1, w0, w1, w_scale, a_scale, bias,
+                                out, out_acc, M, N, K, x_group_words, w_group_words,
+                                stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

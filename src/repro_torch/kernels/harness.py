@@ -7,10 +7,11 @@ takes, and its plain PyTorch version (`plain`), which states the same
 algebra with torch ops. `gemm` launches the kernel for CUDA tensors and runs
 the plain version for CPU tensors; it never falls back from one to the
 other. `gemm_grouped` (K11) runs G GEMMs of one shape, every operand
-carrying a leading group axis, as ONE launch (`repro_gemm_grouped`, counted
-by `GEMM_GROUPED`, or by `GEMM_GROUPED_PLANES` for the plane bodies, K10
-over expert stacks): the int8, s4 and plane bodies on the tensor-core
-tile, the others on the template.
+carrying a leading group axis, as ONE launch (`repro_gemm_grouped`),
+counted by the body's grouped launcher (`MacBody.grouped`): the int8,
+s4, plane (K10 over expert stacks), mxu (K7) and wt-i8a (K8) bodies on the
+tensor-core tile, the popcount bodies (K3, K4) on the first-version
+template `gemm_kernel`.
 """
 from __future__ import annotations
 
@@ -55,22 +56,28 @@ def _workspace(dev: torch.device, stream: int) -> torch.Tensor:
 
 _GROUPED_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                  _I, _L]
-#: the grouped launcher (K11, `repro_gemm_grouped`): one count over every
-#: body it runs but the plane bodies, so that a run tells grouped launches
-#: from ungrouped ones
+#: the grouped launcher (K11, `repro_gemm_grouped`), one count per form, so
+#: that a run tells grouped launches from ungrouped ones and each grouped
+#: form from the others: the int8 and s4 bodies (K11's tensor-core tile) ...
 GEMM_GROUPED = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
-#: the same launcher's count for the plane bodies (K10 over expert stacks)
+#: ... the popcount bodies (K3, K4 on `gemm_kernel`) ...
+GEMM_GROUPED_POP = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
+#: ... the plane bodies (K10 over expert stacks) ...
 GEMM_GROUPED_PLANES = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
+#: ... the mxu bodies (K7: `bmxu_mma_kernel` / `tmxu_mma_kernel`) ...
+GEMM_GROUPED_MXU = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
+#: ... and the wt-i8a body (K8: `wt_mma_kernel`)
+GEMM_GROUPED_WT_I8A = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
 
 
 @dataclasses.dataclass(frozen=True)
 class Tile:
     """The block shape of `gemm_kernel`, which runs the grouped calls of the
-    popcount, mxu and wt-i8a bodies: bm x bn outputs per block, bkq 32-bit
-    words of K per shared-memory stage (packed words for the popcount
-    bodies, words of four int8 codes for the __dp4a bodies). Compile-time
-    constants of `csrc/gemm.cu`; `kernel_tile()` reads them from the built
-    library."""
+    popcount bodies (K3, K4): bm x bn outputs per block, bkq packed 32-bit
+    words of K per shared-memory stage. Every other grouped body runs the
+    tensor-core tile (16 rows up to 16, 128 above; `csrc/gemm.cu`).
+    Compile-time constants of `csrc/gemm.cu`; `kernel_tile()` reads them
+    from the built library."""
     bm: int = 16
     bn: int = 32
     bkq: int = 32
@@ -100,7 +107,8 @@ class MacBody:
     operand is (P, N, K/wk_per_q) with 1 <= P <= w_stack live planes.
     plain(x_ops, w_ops, k) -> (M, N) int32 dot is the body's plain PyTorch
     version; kernel launches the CUDA instantiation and counts its
-    launches."""
+    launches. grouped: the launcher of this body's grouped calls, one of
+    the GEMM_GROUPED* above, whose count holds them."""
     name: str
     body_id: int
     n_x: int
@@ -108,6 +116,7 @@ class MacBody:
     k_per_q: int
     plain: Callable
     kernel: Kernel
+    grouped: Kernel
     w_kmajor: bool = False
     w_stack: int = 0
     xk_per_q: int | None = None
@@ -227,7 +236,8 @@ def gemm_grouped(body: MacBody, x_ops: Sequence[torch.Tensor],
     `gemm_grouped` is that call under `jax.vmap`. On CPU tensors the body's
     plain version runs once per member, then `requant`; on CUDA tensors one
     `repro_gemm_grouped` launch runs every member (its grid's third
-    dimension), never a loop of `gemm` launches."""
+    dimension), never a loop of `gemm` launches, and adds one to
+    `body.grouped`'s count."""
     if out not in ("requant", "acc"):
         raise ValueError(f"out={out!r}")
     if out == "requant" and (w_scale is None or a_scale is None):
@@ -266,11 +276,10 @@ def gemm_grouped(body: MacBody, x_ops: Sequence[torch.Tensor],
     # a plane stack: its live planes and the words from one plane to the next
     w0 = w_ops[0]
     planes, stride = (w0.shape[1], w0.stride(1)) if body.w_stack else (1, 0)
-    launcher = GEMM_GROUPED_PLANES if body.w_stack else GEMM_GROUPED
-    launcher(body.body_id, g, *_ptrs(body, x_ops, w_ops),
-             *(_ptr(t) if rq else None for t in (w_scale, a_scale, bias)),
-             y.data_ptr(), int(not rq), m, n, k, words(x_ops[0]), words(w0),
-             planes, stride)
+    body.grouped(body.body_id, g, *_ptrs(body, x_ops, w_ops),
+                 *(_ptr(t) if rq else None for t in (w_scale, a_scale, bias)),
+                 y.data_ptr(), int(not rq), m, n, k, words(x_ops[0]), words(w0),
+                 planes, stride)
     return y
 
 

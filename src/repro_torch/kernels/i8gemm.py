@@ -5,14 +5,15 @@ On the card (`csrc/gemm.cu`, BODY_I8) up to 8 rows run `i8_stream_kernel`
 (the weights streamed through registers, byte-transposed into `__dp4a`
 words, K split across blocks when the column tiles are too few to fill the
 card) and more rows `i8_mma_kernel` (the int8 tensor cores); a grouped call
-(K11) runs `gemm_kernel`. The plain version below is the same integer dot
+(K11) runs `i8_mma_kernel` with a grid z over the members, a 16-row tile
+up to 16 rows. The plain version below is the same integer dot
 in torch.
 """
 from __future__ import annotations
 
 import torch
 
-from .harness import MacBody, gemm_kernel
+from .harness import GEMM_GROUPED, MacBody, gemm_kernel
 
 
 def i8_dot_plain(x_ops, w_ops, k: int) -> torch.Tensor:
@@ -23,4 +24,5 @@ def i8_dot_plain(x_ops, w_ops, k: int) -> torch.Tensor:
 
 
 I8_DOT = MacBody("i8gemm", body_id=0, n_x=1, n_w=1, k_per_q=1,
-                 plain=i8_dot_plain, kernel=gemm_kernel(), w_kmajor=True)
+                 plain=i8_dot_plain, kernel=gemm_kernel(), grouped=GEMM_GROUPED,
+                 w_kmajor=True)

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core import pack
 
 from .bgemm import unpacked_dot
-from .harness import MacBody, gemm_kernel
+from .harness import GEMM_GROUPED_PLANES, MacBody, gemm_kernel
 
 
 def planes_plain(x_ops, w_ops, k: int, *, bits: int) -> torch.Tensor:
@@ -43,7 +43,7 @@ def _mk(bits: int, name: str, body_id: int) -> MacBody:
                    xk_per_q=1, wk_per_q=pack.WORD, w_stack=bits,
                    plain=lambda x_ops, w_ops, k: planes_plain(x_ops, w_ops, k,
                                                               bits=bits),
-                   kernel=gemm_kernel())
+                   kernel=gemm_kernel(), grouped=GEMM_GROUPED_PLANES)
 
 
 PLANES_W4_I8A = _mk(4, "pgemm_w4a8_planes", 7)

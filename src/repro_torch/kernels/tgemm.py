@@ -11,18 +11,21 @@ Trits are two bit-planes (mask, sign) per `core.pack`.
                      word's active - 2*disagree, `pop_mma_kernel` above runs
                      the b1 tensor cores' AND-popc on the positive and
                      negative planes (m & ~s, m & s) and the masks, dot =
-                     2*agree - active. The plain version is
+                     2*agree - active; a grouped call runs the
+                     first-version `gemm_kernel`. The plain version is
                      `core.pack.ternary_dot_words`.
   TERNARY_MXU      — both sides unpacked to {-1,0,+1} int8 and dotted
                      (BODY_TERNARY_MXU: `tmxu_stream_kernel` up to 8 rows,
-                     `tmxu_mma_kernel` on the int8 tensor cores above);
-                     integer-exact, so equal to TERNARY_POPCOUNT.
+                     `tmxu_mma_kernel` on the int8 tensor cores above, and
+                     for a grouped call at every M, a 16-row tile up to
+                     16 rows); integer-exact, so equal to TERNARY_POPCOUNT.
   TERNARY_W_I8A    — mixed w-ternary x a-int8: (M, K) int8 activation codes
                      against trit weight planes unpacked to int8
                      (BODY_TERNARY_W_I8A: `wt_stream_kernel` up to 8 rows,
-                     `wt_mma_kernel` on the int8 tensor cores above; its
-                     activation rows must start 16-byte aligned on the
-                     card). The two sides have different densities: 1
+                     `wt_mma_kernel` on the int8 tensor cores above, and
+                     for a grouped call at every M, a 16-row tile up to
+                     16 rows; its activation rows, every group member's
+                     too, must start 16-byte aligned on the card). The two sides have different densities: 1
                      code per unit for x, 32 per word for w.
 """
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 from repro_torch.core import pack
 
 from .bgemm import chunked_over_n, unpacked_dot
-from .harness import MacBody, gemm_kernel
+from .harness import (GEMM_GROUPED_MXU, GEMM_GROUPED_POP, GEMM_GROUPED_WT_I8A, MacBody,
+                      gemm_kernel)
 
 
 def ternary_popcount_plain(x_ops, w_ops, k: int) -> torch.Tensor:
@@ -45,7 +49,7 @@ def ternary_popcount_plain(x_ops, w_ops, k: int) -> torch.Tensor:
 
 TERNARY_POPCOUNT = MacBody("tgemm_popcount", body_id=2, n_x=2, n_w=2,
                            k_per_q=pack.WORD, plain=ternary_popcount_plain,
-                           kernel=gemm_kernel())
+                           kernel=gemm_kernel(), grouped=GEMM_GROUPED_POP)
 
 
 def ternary_mxu_plain(x_ops, w_ops, k: int) -> torch.Tensor:
@@ -56,7 +60,8 @@ def ternary_mxu_plain(x_ops, w_ops, k: int) -> torch.Tensor:
 
 
 TERNARY_MXU = MacBody("tgemm_mxu", body_id=4, n_x=2, n_w=2, k_per_q=pack.WORD,
-                      plain=ternary_mxu_plain, kernel=gemm_kernel())
+                      plain=ternary_mxu_plain, kernel=gemm_kernel(),
+                      grouped=GEMM_GROUPED_MXU)
 
 
 def ternary_w_i8a_plain(x_ops, w_ops, k: int) -> torch.Tensor:
@@ -68,4 +73,5 @@ def ternary_w_i8a_plain(x_ops, w_ops, k: int) -> torch.Tensor:
 
 TERNARY_W_I8A = MacBody("tgemm_wt_i8a", body_id=5, n_x=1, n_w=2,
                         k_per_q=pack.WORD, xk_per_q=1, wk_per_q=pack.WORD,
-                        plain=ternary_w_i8a_plain, kernel=gemm_kernel())
+                        plain=ternary_w_i8a_plain, kernel=gemm_kernel(),
+                        grouped=GEMM_GROUPED_WT_I8A)

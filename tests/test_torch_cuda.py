@@ -28,16 +28,20 @@ gives the direct cells' tokens, speculative decoding gives sequential
 decoding's tokens, and a verify row's logits are bit-equal to the
 sequential decode step's at the same position. The grouped GEMM (K11) is
 bit-equal to its plain version and to G separate ungrouped launches for
-every body it serves, in one launch (the int8 and s4 bodies on both of
-their row tiles, at G up to 64), and so is K10 over expert stacks (the
+every body it serves, in one launch counted once by the body's grouped
+launcher (the int8, s4, mxu and wt-i8a bodies on both of their row tiles,
+at G up to 64, the mxu and wt-i8a bodies at K whole and ragged against the
+tile's 128-k stage; the grouped mxu accumulators equal the grouped
+popcount bodies'), and so is K10 over expert stacks (the
 plane bodies grouped, at P = 1 and bits live planes, M = 4, 16 and 128,
 and at P = bits equal to K11's int4 / int8 body on the composed codes),
 which reads a truncated stack `stack[:, :P]` in place, allocating no copy;
 a reduced MoE arch served through it gives a 4-slot server the tokens of a
 1-slot server, and launches it once per expert projection per forward
-call; under `--impl planes` (K10 over the expert stacks) its tokens equal
-the direct cells', and self-speculative decoding gives sequential
-decoding's tokens.
+call (under wt-a8 the grouped wt-i8a form, under `--impl mxu` the grouped
+mxu form, whose tokens equal the popcount formulation's); under `--impl
+planes` (K10 over the expert stacks) its tokens equal the direct cells',
+and self-speculative decoding gives sequential decoding's tokens.
 """
 import dataclasses
 
@@ -404,9 +408,9 @@ def _check_grouped(cuda, body, g, m, k, n):
     w = tuple(torch.stack([p[1][j] for p in parts]) for j in range(body.n_w))
     ws, as_, b = (torch.stack([p[2][j] for p in parts]) for j in range(3))
     dev = lambda ts: tuple(t.to(cuda) for t in ts)
-    before = harness.GEMM_GROUPED.launches
+    before = body.grouped.launches
     acc = harness.gemm_grouped(body, dev(x), dev(w), None, None, k=k, out="acc")
-    assert harness.GEMM_GROUPED.launches == before + 1
+    assert body.grouped.launches == before + 1
     assert torch.equal(acc.cpu(), harness.gemm_grouped(body, x, w, None, None, k=k,
                                                        out="acc"))
     for i in range(g):
@@ -441,6 +445,43 @@ _GROUPED_TC = [(1, 4, 256, 100), (1, 130, 1024, 352), (3, 1, 136, 100),
                          ids=lambda b: b.name)
 def test_grouped_tc_bodies_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k, n):
     _check_grouped(cuda, body, g, m, k, n)
+
+
+#: K7's and K8's grouped bodies on both row tiles: G = 1, 3 and 64, M on
+#: each side of the 16-row switch (1, 4, 16 | 17, 33, 130), K a multiple of
+#: the 32-k word, whole (2048) or ragged (32, 96, 160, 1408) against the
+#: 128-k stage (4-byte loads), N ragged (100, 228)
+_GROUPED_BITS = [(1, 1, 32, 100), (1, 130, 2048, 228), (1, 17, 96, 100),
+                 (1, 33, 1408, 100), (3, 4, 160, 228), (3, 16, 1408, 100),
+                 (3, 33, 96, 228), (3, 130, 160, 100), (3, 1, 2048, 228),
+                 (64, 16, 2048, 100), (64, 4, 32, 228), (64, 17, 1408, 228)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k,n", _GROUPED_BITS)
+@pytest.mark.parametrize("body", [bgemm.BINARY_MXU, tgemm.TERNARY_MXU,
+                                  tgemm.TERNARY_W_I8A], ids=lambda b: b.name)
+def test_grouped_bit_bodies_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k, n):
+    _check_grouped(cuda, body, g, m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k,n", [(3, 4, 160, 228), (64, 16, 1408, 100),
+                                     (3, 17, 2048, 100), (2, 130, 96, 228)])
+@pytest.mark.parametrize("mxu,popcount", [
+    (bgemm.BINARY_MXU, bgemm.BINARY_POPCOUNT),
+    (tgemm.TERNARY_MXU, tgemm.TERNARY_POPCOUNT)], ids=["binary", "ternary"])
+def test_grouped_mxu_kernel_equals_grouped_popcount_kernel(cuda, mxu, popcount, g, m,
+                                                           k, n):
+    """A grouped mxu launch (K7's tile) and a grouped popcount launch (K3 /
+    K4) on the same operands give the same int32 accumulators."""
+    gen = torch.Generator().manual_seed(g + m + k + n)
+    parts = [_operands(mxu, m, n, k, gen) for _ in range(g)]
+    x = tuple(torch.stack([p[0][j] for p in parts]).to(cuda) for j in range(mxu.n_x))
+    w = tuple(torch.stack([p[1][j] for p in parts]).to(cuda) for j in range(mxu.n_w))
+    a = harness.gemm_grouped(mxu, x, w, None, None, k=k, out="acc")
+    b = harness.gemm_grouped(popcount, x, w, None, None, k=k, out="acc")
+    assert torch.equal(a, b)
 
 
 def _grouped_planes(g, m, k, n, bits, gen):
@@ -541,11 +582,19 @@ def test_grouped_plane_kernel_reads_truncated_view_in_place(cuda):
             harness.gemm_grouped(body, (xs,), (bad,), None, None, k=k, out="acc")
 
 
+#: every grouped launcher's count, by the name `kernels.KERNELS` gives it
+_GROUPED = {"gemm_grouped": harness.GEMM_GROUPED,
+            "gemm_grouped_pop": harness.GEMM_GROUPED_POP,
+            "gemm_grouped_planes": harness.GEMM_GROUPED_PLANES,
+            "gemm_grouped_mxu": harness.GEMM_GROUPED_MXU,
+            "gemm_grouped_wt_i8a": harness.GEMM_GROUPED_WT_I8A}
+
+
 def _reduced_moe_serve(cuda, arch, policy, slots, lens=(3, 9, 14, 5, 30, 1), *,
                        impl="popcount", spec_draft=None):
     """Reduced `arch` (3 layers) served from the port's seeded init; returns
-    (tokens by request, stats, grouped launches: K11 and K10 over expert
-    stacks)."""
+    (tokens by request, stats, the grouped launches by launcher name, those
+    that launched)."""
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import transformer
     from repro_torch.models.common import ModelCtx
@@ -559,23 +608,44 @@ def _reduced_moe_serve(cuda, arch, policy, slots, lens=(3, 9, 14, 5, 30, 1), *,
                  ctx=ModelCtx(impl=impl), device=cuda, spec_draft=spec_draft)
     for i, p in enumerate(prompts):
         srv.submit(Request(i, p, 8, seed=i))
-    before = (harness.GEMM_GROUPED.launches, harness.GEMM_GROUPED_PLANES.launches)
+    before = {name: k.launches for name, k in _GROUPED.items()}
     srv.run()
+    grouped = {name: k.launches - before[name] for name, k in _GROUPED.items()}
     return ({r.rid: r.out for r in srv.completed}, srv.stats,
-            (harness.GEMM_GROUPED.launches - before[0],
-             harness.GEMM_GROUPED_PLANES.launches - before[1]))
+            {name: c for name, c in grouped.items() if c})
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["het", "int8", "ternary", "w-ternary"])
+@pytest.mark.parametrize("policy", ["het", "int8", "ternary", "w-ternary", "wt-a8"])
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"])
 def test_reduced_moe_serve_batched_equals_sequential_on_card(cuda, arch, policy):
     toks, st, grouped = _reduced_moe_serve(cuda, arch, policy, 4)
     assert toks == _reduced_moe_serve(cuda, arch, policy, 1)[0]
     assert st["moe_routed"] == sum(st["moe_expert_tokens"]) + st["moe_dropped"] > 0
     calls = st["prefills"] + st["decode_ticks"]
-    # every W&A expert projection is one grouped launch; weight-only none
-    assert grouped == (0 if policy == "w-ternary" else 2 * 3 * calls, 0)
+    # every W&A expert projection is one grouped launch on its form's count
+    # (het, int8: all 2 x 3 on K11's; ternary: on K3 / K4's; wt-a8: its first
+    # and last layers' int8 experts on K11's, the body layer's 2 on K8's);
+    # weight-only none
+    per_call = {"het": {"gemm_grouped": 6}, "int8": {"gemm_grouped": 6},
+                "ternary": {"gemm_grouped_pop": 6}, "w-ternary": {},
+                "wt-a8": {"gemm_grouped": 4, "gemm_grouped_wt_i8a": 2}}[policy]
+    assert grouped == {n: c * calls for n, c in per_call.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["binary", "ternary"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"])
+def test_reduced_moe_serve_mxu_equals_popcount_on_card(cuda, arch, policy):
+    """--impl mxu: every expert projection one grouped mxu launch (K7's
+    tile), tokens == the popcount formulation's (one grouped popcount
+    launch, K3 / K4, per expert projection), 4-slot == 1-slot."""
+    toks, st, grouped = _reduced_moe_serve(cuda, arch, policy, 4, impl="mxu")
+    pop, pst, pgrouped = _reduced_moe_serve(cuda, arch, policy, 4)
+    assert toks == pop
+    assert toks == _reduced_moe_serve(cuda, arch, policy, 1, impl="mxu")[0]
+    assert grouped == {"gemm_grouped_mxu": 2 * 3 * (st["prefills"] + st["decode_ticks"])}
+    assert pgrouped == {"gemm_grouped_pop": 2 * 3 * (pst["prefills"] + pst["decode_ticks"])}
 
 
 @pytest.mark.cuda
@@ -587,14 +657,13 @@ def test_reduced_moe_serve_planes_and_spec_on_card(cuda, arch, policy):
     tokens == sequential tokens, the draft's expert projections on the
     grouped plane launch, the verify step's on K11."""
     direct = _reduced_moe_serve(cuda, arch, policy, 4)[0]
-    toks, st, (k11, k10g) = _reduced_moe_serve(cuda, arch, policy, 4, impl="planes")
+    toks, st, grouped = _reduced_moe_serve(cuda, arch, policy, 4, impl="planes")
     assert toks == direct
     assert toks == _reduced_moe_serve(cuda, arch, policy, 1, impl="planes")[0]
-    assert (k11, k10g) == (0, 2 * 3 * (st["prefills"] + st["decode_ticks"]))
-    toks, st, (k11, k10g) = _reduced_moe_serve(cuda, arch, policy, 4,
-                                               spec_draft="planes:1")
+    assert grouped == {"gemm_grouped_planes": 2 * 3 * (st["prefills"] + st["decode_ticks"])}
+    toks, st, grouped = _reduced_moe_serve(cuda, arch, policy, 4, spec_draft="planes:1")
     assert toks == direct and st["spec_ticks"] > 0
-    assert k11 > 0 and k10g > 0
+    assert set(grouped) == {"gemm_grouped", "gemm_grouped_planes"}
     assert st["moe_routed"] == sum(st["moe_expert_tokens"]) + st["moe_dropped"] > 0
 
 
