@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Time the grouped GEMM of several builds of `csrc/gemm.cu` against each
-other on one NVIDIA GPU, at the deepseek-moe-16b decode tick (28 layers x
-{up, down}, 64 experts, 16 rows an expert).
+other on one NVIDIA GPU, at the deepseek-moe-16b expert shapes (28 layers
+x {up, down}, 64 experts) with 16 rows an expert (the 4-slot decode tick)
+and 128 (a prefill slab), and the ungrouped popcount bodies at a
+llama3.2-3b 256-row prefill.
 
     python3 chip_ab.py TREE [TREE ...]
 
@@ -9,16 +11,19 @@ A TREE is a directory holding a checkout of this repository (`.` for this
 one, or a parent commit unpacked with `git archive` into `build/parent`).
 Each tree's `src/repro_torch/kernels/csrc/gemm.cu` is built with
 `build.NVCC_FLAGS` (one nvcc each, in parallel) into `build/ab/`; its
-ptxas lines for the grouped tensor-core kernels are printed. Every tree
-runs through this checkout's harness, the body's grouped launcher bound to
-that tree's `repro_gemm_grouped` (one C signature in every tree), on the
-same operands, and each result must be bit-equal to the body's plain
-version (int32 accumulator and bf16 output). The bodies are grouped K7
-(binary, ternary), K8 and K11's s4 body. Per body the trees are timed in
-turns, t1 .. tn then tn .. t1, each launch as `chip_smoke.time_ms` times it
-(operands cold, 10 launches); a tree's tick is the mean of its two turns.
-Prints the card's name and power limit, a line per body, then one JSON
-line. Exits non-zero without a CUDA device or when a tree disagrees.
+ptxas lines for the tensor-core kernels are printed. Every tree runs
+through this checkout's harness, the body's launcher bound to that tree's
+`repro_gemm_grouped` or `repro_gemm` (one C signature each in every tree),
+on the same operands, and each result must be bit-equal to the body's
+plain version (int32 accumulator and bf16 output). The grouped bodies are
+K3 and K4 (binary and ternary popcount), K7 (binary and ternary mxu), K8
+and K11's s4 body; the ungrouped ones K3 and K4 (28 x {qkv, out, up, down}
++ lm_head at M = 256, their 64-row b1 tile). Per body the trees are timed
+in turns, t1 .. tn then tn .. t1, each launch as `chip_smoke.time_ms` times
+it (operands cold, 10 launches); a tree's tick is the mean of its two
+turns. Prints the card's name and power limit, a line per body and rows,
+then one JSON line. Exits non-zero without a CUDA device or when a tree
+disagrees.
 """
 from __future__ import annotations
 
@@ -34,9 +39,15 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-#: the bodies timed: grouped K7 (binary, ternary), K8, and K11's s4 body
-TIMED = ("bgemm_mxu", "tgemm_mxu", "tgemm_wt_i8a", "i4gemm_w4a8")
-ROWS = 16                    # rows an expert: the 4-slot decode tick's
+#: the bodies timed grouped: K3, K4, K7 (binary, ternary), K8, and K11's s4
+#: body
+TIMED = ("bgemm_popcount", "tgemm_popcount", "bgemm_mxu", "tgemm_mxu",
+         "tgemm_wt_i8a", "i4gemm_w4a8")
+#: rows an expert: the 4-slot decode tick's, and a prefill slab
+ROWS = (16, 128)
+#: the bodies also timed ungrouped, at PREFILL rows
+UNGROUPED = ("bgemm_popcount", "tgemm_popcount")
+PREFILL = 256
 
 
 def build_tree(tree: str):
@@ -56,8 +67,9 @@ def build_tree(tree: str):
                                        stderr=subprocess.STDOUT, text=True)
 
 
-def ptxas_lines(tree: str, text: str, keep=("mxu_mma", "wt_mma", "s4_mma")) -> None:
-    """Print the registers and spills of the grouped tensor-core kernels."""
+def ptxas_lines(tree: str, text: str,
+                keep=("pop_mma", "mxu_mma", "wt_mma", "s4_mma")) -> None:
+    """Print the registers and spills of the tensor-core kernels timed."""
     fn = None
     for line in text.splitlines():
         hit = re.search(r"Compiling entry function '(\S+)'", line)
@@ -67,13 +79,35 @@ def ptxas_lines(tree: str, text: str, keep=("mxu_mma", "wt_mma", "s4_mma")) -> N
             print(f"[ab] {tree} {fn}: {line.strip()}", flush=True)
 
 
-def bind(path: Path):
-    """The tree's `repro_gemm_grouped`, typed as the harness calls it."""
+def bind(path: Path) -> dict:
+    """The tree's `repro_gemm_grouped` and `repro_gemm`, typed as the
+    harness calls them."""
     from repro_torch.kernels import harness
-    fn = ctypes.CDLL(str(path)).repro_gemm_grouped
-    fn.argtypes = list(harness.GEMM_GROUPED.argtypes) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib, fns = ctypes.CDLL(str(path)), {}
+    for kernel in (harness.GEMM_GROUPED, harness.gemm_kernel()):
+        fn = getattr(lib, kernel.symbol)
+        fn.argtypes = list(kernel.argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[kernel.symbol] = fn
+    return fns
+
+
+def same(tree: str, label: str, got, want) -> None:
+    """Exit unless got == want bit for bit (int32, or bf16 as int16)."""
+    if got.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
+    if not torch.equal(got, want):
+        print(f"chip_ab: {tree} {label}: kernel != plain", file=sys.stderr)
+        raise SystemExit(1)
+
+
+def in_turns(libs, kernel, fn, flush, tick: dict, scale: float) -> None:
+    """Time fn() with `kernel` bound to each tree's library in turns, t1 ..
+    tn then tn .. t1, adding scale x half of each turn's ms to tick[tree]."""
+    import chip_smoke as cs
+    for tree, fns in libs + libs[::-1]:
+        kernel._fn = fns[kernel.symbol]
+        tick[tree] += scale * cs.time_ms(fn, 10, flush) / 2
 
 
 def main() -> int:
@@ -105,36 +139,52 @@ def main() -> int:
     cfg = get_config("deepseek-moe-16b")
     gen = torch.Generator(device="cuda").manual_seed(7)
     flush = torch.ones(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    m, result = ROWS, {}
-    for bname in TIMED:
+    result = {}
+    for m in ROWS:
+        for bname in TIMED:
+            body = by_name[bname]
+            tick = {tree: 0.0 for tree, _ in libs}
+            for name, g, n, k in cs.moe_gemm_shapes(cfg):
+                x_ops, w_ops, ws, as_, bias = cs.grouped_stack(body, g, m, n, k, gen)
+                dot = cs.grouped_plain(body, x_ops, w_ops, None, None, None, k, "acc")
+                want = cs.grouped_plain(body, x_ops, w_ops, ws, as_, bias, k)
+                for tree, fns in libs:
+                    body.grouped._fn = fns[body.grouped.symbol]
+                    label = f"{bname} {name} M={m}"
+                    same(tree, label, harness.gemm_grouped(body, x_ops, w_ops, None, None,
+                                                           k=k, out="acc"), dot)
+                    same(tree, label, harness.gemm_grouped(body, x_ops, w_ops, ws, as_, bias,
+                                                           k=k), want)
+                in_turns(libs, body.grouped, lambda: harness.gemm_grouped(
+                    body, x_ops, w_ops, ws, as_, k=k), flush, tick, cfg.n_layers)
+                del x_ops, w_ops, ws, as_, bias, dot, want
+                torch.cuda.empty_cache()
+            result[f"{bname} grouped M={m}"] = tick
+            print(f"[ab] {bname} grouped, deepseek-moe-16b {m} rows an expert, a tick of "
+                  f"28 x {{up, down}} (bit-equal to plain in every tree): "
+                  + "; ".join(f"{tree} {t:.3f} ms" for tree, t in tick.items()), flush=True)
+    dense = get_config("llama3.2-3b")
+    for bname in UNGROUPED:
         body = by_name[bname]
         tick = {tree: 0.0 for tree, _ in libs}
-        for name, g, n, k in cs.moe_gemm_shapes(cfg):
-            x_ops, w_ops, ws, as_, bias = cs.grouped_stack(body, g, m, n, k, gen)
-            dot = cs.grouped_plain(body, x_ops, w_ops, None, None, None, k, "acc")
-            want = cs.grouped_plain(body, x_ops, w_ops, ws, as_, bias, k)
-            for tree, fn in libs:
-                body.grouped._fn = fn
-                acc = harness.gemm_grouped(body, x_ops, w_ops, None, None, k=k, out="acc")
-                got = harness.gemm_grouped(body, x_ops, w_ops, ws, as_, bias, k=k)
-                if not (torch.equal(acc, dot) and
-                        torch.equal(got.view(torch.int16), want.view(torch.int16))):
-                    print(f"chip_ab: {tree} {bname} {name}: kernel != plain",
-                          file=sys.stderr)
-                    return 1
-            turns = libs + libs[::-1]
-            for tree, fn in turns:
-                body.grouped._fn = fn
-                ms = cs.time_ms(lambda: harness.gemm_grouped(body, x_ops, w_ops, ws, as_,
-                                                             k=k), 10, flush)
-                tick[tree] += cfg.n_layers * ms / 2
+        for name, n, k, per_tick in cs.gemm_shapes(dense):
+            x_ops, w_ops, ws, as_, bias = cs.gemm_operands(body, PREFILL, n, k, gen)
+            dot = body.plain(x_ops, w_ops, k)
+            want = harness.requant(dot, ws, as_, bias).to(torch.bfloat16)
+            for tree, fns in libs:
+                body.kernel._fn = fns[body.kernel.symbol]
+                label = f"{bname} {name} M={PREFILL}"
+                same(tree, label, harness.gemm(body, x_ops, w_ops, None, None, k=k,
+                                               out="acc"), dot)
+                same(tree, label, harness.gemm(body, x_ops, w_ops, ws, as_, bias, k=k), want)
+            in_turns(libs, body.kernel, lambda: harness.gemm(body, x_ops, w_ops, ws, as_, k=k),
+                     flush, tick, per_tick)
             del x_ops, w_ops, ws, as_, bias, dot, want
-            torch.cuda.empty_cache()
-        result[bname] = tick
-        print(f"[ab] {bname} deepseek-moe-16b {m}-row decode tick (28 x {{up, down}}, "
-              f"bit-equal to plain in every tree): "
+        result[f"{bname} ungrouped M={PREFILL}"] = tick
+        print(f"[ab] {bname} ungrouped, llama3.2-3b {PREFILL}-row prefill (28 x {{qkv, out, "
+              f"up, down}} + lm_head, bit-equal to plain in every tree): "
               + "; ".join(f"{tree} {t:.3f} ms" for tree, t in tick.items()), flush=True)
-    print(json.dumps({"rows": m, "tick_ms": result}), flush=True)
+    print(json.dumps({"tick_ms": result}), flush=True)
     return 0
 
 

@@ -12,10 +12,11 @@ Phases:
                (cuobjdump) of K6's bf16 kernel holds HMMA/HGMMA, that of
                every instantiation (16- and 128-row tiles) of the
                tensor-core kernels of K1, K7 (binary and ternary), K8, K9
-               and K10 IMMA/IGMMA and that of K3's and K4's BMMA/BGMMA
-               instructions, or if K5's llama3.2-3b or deepseek-moe-16b
-               instantiation, any of K3's and K4's kernels or the 16-row
-               K7 / K8 tiles spill
+               and K10 IMMA/IGMMA and that of every instantiation of K3's
+               and K4's b1 tile (16- and 64-row, ungrouped and grouped)
+               BMMA/BGMMA instructions, or if K5's llama3.2-3b or
+               deepseek-moe-16b instantiation, any of K3's and K4's kernels
+               or the 16-row K7 / K8 tiles spill
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card, at the serve path's full llama3.2-3b shapes: the packed
                GEMM under each of its seven MAC bodies at M = 4, 32 and 256,
@@ -27,7 +28,8 @@ Phases:
                bodies'; K9 at qkv, out, up
                and down, the shapes w4a8 runs it at; K1's and K9's decode
                ticks also timed back to back),
-               the plane-composed bodies (K10, int4 and int8
+               one torch.mm in bf16 on the unpacked codes beside each
+               body at M = 4; the plane-composed bodies (K10, int4 and int8
                stacks) at P = 1, 2 and bits live planes and M = 4, 7, 9,
                13, 16, 32, 40 and 256 (both regimes; bit-equal, and at P =
                bits equal to the direct int8 / int4 bodies' accumulators on
@@ -47,10 +49,11 @@ Phases:
                ternary mxu) and K8 (wt-i8a) on the tensor-core tile at the
                same shapes and rows (bit-equal to the plain version and to
                G ungrouped launches; K7's accumulators equal grouped K3's /
-               K4's); the grouped bodies still on gemm_kernel (K3, K4) at
-               deepseek-moe-16b's decode tick shape (bit-equal, timed
-               beside grouped K7 on the same operands and torch.bmm) and
-               at 128 rows beside torch._int_mm once per expert; with
+               K4's); grouped K3 and K4 on the b1 tile at deepseek-moe-16b's
+               expert shapes, M = 4, 16 and 128 (bit-equal to the plain
+               version, to G ungrouped launches and to grouped K7 on the
+               same operands, timed beside it; at 16 rows beside torch.bmm,
+               at 128 beside torch._int_mm once per expert); with
                kernel, plain and library times and the bound of each
   4. serve   — full-width, 28-layer llama3.2-3b from the port's seeded init,
                8 requests through the paged continuous-batching server:
@@ -91,8 +94,8 @@ Phases:
                direct run's, 4-slot == 1-slot, launches counted exactly);
                deepseek at full depth under wt-a8 (grouped K8) and ternary,
                popcount and `--impl mxu` (grouped K4, grouped K7: mxu
-               tokens == popcount tokens), and at 4 layers under binary and
-               ternary (the grouped gemm_kernel bodies, K3 and K4); then
+               tokens == popcount tokens), and at 4 layers under binary
+               (grouped K3); then
                one profiled 4-slot decode tick of deepseek het, direct and
                under `--impl planes`, and of deepseek wt-a8
   6. archs   — qwen1.5-32b (4 of 64 layers) and nemotron-4-340b (2 of 96)
@@ -188,9 +191,6 @@ LIB_ROWS = 128               # rows an expert where torch._int_mm is timed besid
 GROUPED_FORMS = {"gemm_grouped": ("i4gemm_w4a8", "i8gemm"),
                  "gemm_grouped_mxu": ("tgemm_mxu", "bgemm_mxu"),
                  "gemm_grouped_wt_i8a": ("tgemm_wt_i8a",)}
-#: the 4-layer deepseek runs that send the expert projections to the
-#: grouped bodies still on gemm_kernel (K3, K4): (policy, impl)
-FIRST_VERSION_RUNS = (("binary", "popcount"), ("ternary", "popcount"))
 #: GEMM rows checked: decode (4 slots), both prefill buckets, and for the
 #: mxu bodies (K7) and their popcount twins each side of K7's switch from
 #: its streaming kernel (up to 8 rows) to its tensor-core kernel
@@ -297,17 +297,21 @@ TENSOR_CORE_KERNELS = [("flash_attn", "flash_mma_kernel", ("HMMA", "HGMMA")),   
                        ("gemm", "bmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7, grouped
                        ("gemm", "tmxu_mma_kernel", ("IMMA", "IGMMA")),          # K7, grouped
                        ("gemm", "wt_mma_kernel", ("IMMA", "IGMMA")),            # K8, grouped
-                       # K3, K4: b1 products on the tensor cores (BMMA), not
-                       # emulated by a run of LOP3 / POPC
+                       # K3, K4, ungrouped and grouped (every row tile): b1
+                       # products on the tensor cores (BMMA), not emulated by
+                       # a run of LOP3 / POPC
                        ("gemm", "pop_mma_kernel", ("BMMA", "BGMMA"))]
 #: instantiations that must not spill: K5's (G, dh) of llama3.2-3b and
 #: deepseek-moe-16b, as in `paged_decode_kernel<QT, KVT, G, dh>`, every
 #: instantiation of K3's and K4's kernels, which llama3.2-3b's binary and
-#: ternary ticks run (MS = 4 and 8 rows; NP = 1 and 2 planes), and K7's and
-#: K8's 16-row tiles, which the MoE decode ticks run (BM = 16)
+#: ternary ticks run (MS = 4 and 8 rows; NP = 1 and 2 planes) and the MoE
+#: binary and ternary ticks the 16-row b1 tiles of (`pop_mma_kernel<NP,
+#: BM>`), and K7's and K8's 16-row tiles, which the MoE decode ticks run
+#: (BM = 16)
 NO_SPILL = {"paged_decode_kernel": ("Li3ELi128E", "Li1ELi128E"),
             "bpop_stream_kernel": ("Li4E", "Li8E"), "tpop_stream_kernel": ("Li4E", "Li8E"),
-            "pop_mma_kernel": ("Li1E", "Li2E"), "bmxu_mma_kernel": ("Li16E",),
+            "pop_mma_kernel": ("Li1ELi16E", "Li2ELi16E", "Li1ELi64E", "Li2ELi64E"),
+            "bmxu_mma_kernel": ("Li16E",),
             "tmxu_mma_kernel": ("Li16E",), "wt_mma_kernel": ("Li16E",)}
 
 
@@ -346,9 +350,10 @@ def check_spills(spills: dict) -> None:
 def sass_tensor_cores() -> None:
     """cuobjdump -sass (the toolkit's, beside nvcc) of the built libraries:
     K6's bf16 kernel must hold HMMA (or HGMMA), the tensor-core kernels of
-    K1, K7, K8, K9 and K10 IMMA (or IGMMA) and K3's and K4's BMMA (or BGMMA)
-    instructions (each instantiation: the row tiles of K1, K7, K8, K9 and
-    K10, K10's bit widths, K3's and K4's planes)."""
+    K1, K7, K8, K9 and K10 IMMA (or IGMMA) and K3's and K4's b1 tile
+    (`pop_mma_kernel`, ungrouped and grouped) BMMA (or BGMMA) instructions
+    (each instantiation: the row tiles of K1, K7, K8, K9 and K10, K10's bit
+    widths, K3's and K4's planes and row tiles)."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
@@ -374,7 +379,7 @@ def sass_tensor_cores() -> None:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels import build, harness
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: "
@@ -384,10 +389,6 @@ def phase_build() -> None:
         spills.update(ptxas_report(name, text))
     check_spills(spills)
     sass_tensor_cores()
-    tile = harness.kernel_tile()
-    if tile != harness.Tile():
-        raise RuntimeError(f"compiled GEMM tile {tile} != harness.Tile() {harness.Tile()}")
-    log(f"[build] GEMM tile {tile}")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -451,6 +452,16 @@ def member_codes(body, x_ops, w_ops, k) -> list:
             for i in range(x_ops[0].shape[0])]
 
 
+def bf16_mm_ms(x, w, flush, iters=20) -> float:
+    """Device ms of one `torch.mm` (or, on a leading group axis,
+    `torch.bmm`) in bf16 on int8 codes x (.., M, K) and w (.., K, N): exact
+    products and f32 sums, so the same dot as long as |dot| < 2^24, reading
+    the codes at 2 bytes each."""
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    fn = torch.bmm if x.ndim == 3 else torch.mm
+    return time_ms(lambda: fn(xb, wb), iters, flush)
+
+
 def int_mm_per_expert(codes, flush) -> float:
     """Device ms of `torch._int_mm` once per member (M > 16) on `codes`."""
     return time_ms(lambda: [torch._int_mm(a, w) for a, w in codes], 10, flush,
@@ -461,10 +472,12 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
     """Kernel vs plain at every serve GEMM shape the body runs (its tick's,
     TICK_LAYERS, and CHECK_LAYERS), at M = SLOTS (decode) and at both
     prefill buckets (MXU_ROWS for K7, its twins and K8); returns the
-    per-decode-tick record over its tick's
-    layers. `accs` collects each shape's int32 accumulator, so that an mxu
-    body can be held against its popcount twin on the same operands (same
-    seed). K1's and K9's decode ticks are also timed back to back."""
+    per-decode-tick record over its tick's layers, its library time one
+    `torch.mm` in bf16 on the unpacked codes at M = SLOTS (`torch._int_mm`
+    needs M > 16; it is timed above 16 rows). `accs` collects each shape's
+    int32 accumulator, so that an mxu body can be held against its popcount
+    twin on the same operands (same seed). K1's and K9's decode ticks are
+    also timed back to back."""
     from repro_torch.kernels import harness, i4gemm, i8gemm
     tick = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0, "lib": 0.0}
     layers = TICK_LAYERS.get(body.name)
@@ -509,24 +522,27 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
             ops = 2.0 * m * n * k
             bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
             lib = None
-            if m > 16:
+            if m > 16 or m == SLOTS:
                 xi, wi = unpacked_i8(body, x_ops, w_ops, k)
-                lib = time_ms(lambda: torch._int_mm(xi, wi), 20, flush)
+                lib = (time_ms(lambda: torch._int_mm(xi, wi), 20, flush) if m > 16
+                       else bf16_mm_ms(xi, wi, flush))
                 del xi, wi
             log(f"[kernels] {body.name:15s} {name:8s} M={m:3d} N={n:6d} K={k:5d} "
                 f"bit-equal ok  kernel {ms:.4f} ms  plain {pms:.3f} ms  "
                 f"bound {bound:.4f} ms ({'bytes' if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS_PER_S else 'operations'})"
-                + (f"  torch._int_mm {lib:.4f} ms" if lib is not None else ""))
+                + (f"  torch._int_mm {lib:.4f} ms" if m > 16 else
+                   f"  torch.mm bf16 on the unpacked codes {lib:.4f} ms" if lib else ""))
             if m == SLOTS and (layers is None or name in layers):
                 tick["ms"] += per_tick * ms
                 tick["plain_ms"] += per_tick * pms
                 tick["bytes"] += per_tick * nbytes
                 tick["ops"] += per_tick * ops
+                tick["lib"] += per_tick * lib
     t_bytes = tick["bytes"] / HBM_BYTES_PER_S
     t_ops = tick["ops"] / INT8_OPS_PER_S
     log(f"[kernels] {body.name} {SLOTS}-slot decode tick ({'+'.join(layers or ('all',))}"
         f" layers), sum of launches timed one by one: {tick['ms']:.3f} ms (bound "
-        f"{max(t_bytes, t_ops) * 1e3:.4f})")
+        f"{max(t_bytes, t_ops) * 1e3:.4f}; torch.mm bf16 {tick['lib']:.3f})")
     if body in (i8gemm.I8_DOT, i4gemm.INT4_W_I8A):
         seq = tick_in_sequence(body, cfg, flush, gen)[None]
         log(f"[kernels] {body.name} {SLOTS}-slot decode tick "
@@ -535,7 +551,7 @@ def check_gemm(body, cfg, flush, gen, accs) -> dict:
     return {"name": body.name, "max_abs_err": 0.0, "ms": tick["ms"],
             "plain_ms": tick["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": tick["lib"]}
 
 
 def moe_gemm_shapes(cfg):
@@ -647,11 +663,10 @@ def check_grouped(flush, gen) -> list:
                             msg += f"  plain {pms:.2f} ms"
                             if arch == MOE_ARCHS[0] and body.name == bodies[0]:
                                 cs = member_codes(body, x_ops, w_ops, k)
-                                xb = torch.stack([c[0] for c in cs]).to(torch.bfloat16)
-                                wb = torch.stack([c[1] for c in cs]).to(torch.bfloat16)
-                                lib = time_ms(lambda: torch.bmm(xb, wb), 10, flush)
+                                lib = bf16_mm_ms(torch.stack([c[0] for c in cs]),
+                                                 torch.stack([c[1] for c in cs]), flush, 10)
                                 msg += f"  torch.bmm bf16 on the unpacked codes {lib:.4f} ms"
-                                del cs, xb, wb
+                                del cs
                                 t = ticks[form]
                                 for key, v in (("ms", ms), ("plain_ms", pms),
                                                ("bytes", nbytes), ("ops", ops), ("lib", lib)):
@@ -687,12 +702,14 @@ def check_grouped_planes(flush, gen) -> dict:
     `torch._int_mm` once per expert on the composed codes beside it.
     Returns the record of a 4-slot deepseek-moe-16b het decode tick under
     `--impl planes` at P = 4: 28 layers x {up, down} at M = 16 on the int4
-    stacks, one launch each (the P = 1 draft's tick logged beside it)."""
+    stacks, one launch each (the P = 1 draft's tick logged beside it); its
+    library time one `torch.bmm` over the experts in bf16 on the composed
+    codes (`torch._int_mm` needs M > 16)."""
     from repro_torch.configs import get_config
     from repro_torch.core import pack
     from repro_torch.kernels import harness, i4gemm, i8gemm, pgemm
     tick = {"ms": {1: 0.0, 4: 0.0}, "bytes": {1: 0.0, 4: 0.0}, "plain_ms": 0.0,
-            "ops": 0.0}
+            "ops": 0.0, "lib": 0.0}
     for arch in MOE_ARCHS:
         cfg = get_config(arch)
         for name, g, n, k in moe_gemm_shapes(cfg):
@@ -745,12 +762,15 @@ def check_grouped_planes(flush, gen) -> dict:
                                                             None, k), 1)
                         msg += f"  plain {pms:.2f} ms"
                         if arch == MOE_ARCHS[0] and bits == 4:
+                            lib = bf16_mm_ms(x, codes.transpose(-1, -2), flush, 10)
+                            msg += f"  torch.bmm bf16 on the composed codes {lib:.4f} ms"
                             n_l = cfg.n_layers
                             for p in (1, 4):
                                 tick["ms"][p] += n_l * ms[p]
                                 tick["bytes"][p] += n_l * nbytes[p]
                             tick["plain_ms"] += n_l * pms
                             tick["ops"] += n_l * ops
+                            tick["lib"] += n_l * lib
                     if m == LIB_ROWS:
                         lib = int_mm_per_expert([(a, c.T.contiguous())
                                                  for a, c in zip(x, codes)], flush)
@@ -763,26 +783,27 @@ def check_grouped_planes(flush, gen) -> dict:
     log(f"[kernels] gemm_grouped_planes deepseek-moe-16b het {SLOTS}-slot decode tick "
         f"(28 x {{up, down}}, M={TICK_ROWS}): P=4 {tick['ms'][4]:.3f} ms (bound "
         f"{bounds[4]:.4f}), P=1 {tick['ms'][1]:.3f} ms (bound {bounds[1]:.4f}); "
-        f"P=1 / P=4 = {tick['ms'][1] / tick['ms'][4]:.3f}")
+        f"P=1 / P=4 = {tick['ms'][1] / tick['ms'][4]:.3f}; torch.bmm bf16 "
+        f"{tick['lib']:.3f} ms")
     t_b = tick["bytes"][4] / HBM_BYTES_PER_S
     return {"name": "gemm_grouped_planes", "max_abs_err": 0.0, "ms": tick["ms"][4],
             "plain_ms": tick["plain_ms"], "bound_ms": bounds[4],
             "bound_by": "bytes" if t_b >= t_o else "operations",
-            # torch._int_mm needs M > 16 rows; timed at M = 128 above
-            "library_ms": None}
+            "library_ms": tick["lib"]}
 
 
 def check_grouped_popcount(flush, gen) -> dict:
-    """The grouped bodies still on gemm_kernel (K3, K4), which MoE runs
-    under binary, ternary or mixed reach: at the deepseek-moe-16b expert
-    shapes (G = 64) and M = 16 (the decode tick) and 128 rows an expert,
-    bit-equal to the plain version and to G ungrouped launches, each timed
-    beside the grouped K7 tile on the same operands (its accumulators equal
-    theirs), at M = 128 also beside `torch._int_mm` once per expert on the
-    unpacked codes; logs the 4-slot tick (28 x {up, down}) of each beside
-    its bound and K7's. Returns the record of K4's tick (the served ternary
-    policy's experts); its library time is one `torch.bmm` over the experts
-    in bf16 on the unpacked codes, as `check_grouped`'s."""
+    """Grouped K3 and K4 on the b1 tile (`pop_mma_kernel`, 16 rows up to
+    G_SMALL_M, 64 above), which MoE runs under binary, ternary or mixed
+    reach: at the deepseek-moe-16b expert shapes (G = 64) and M = 4, 16
+    (the 4-slot decode tick) and 128 rows an expert, bit-equal to the plain
+    version and to G ungrouped launches, each timed beside the grouped K7
+    tile on the same operands (its accumulators equal theirs); at M = 16
+    beside one `torch.bmm` in bf16 on the unpacked codes, at M = 128 beside
+    `torch._int_mm` once per expert on them. Logs the 4-slot tick (28 x
+    {up, down}) of each beside its bound and K7's. Returns the record of
+    K4's tick (the served ternary policy's experts), its library time the
+    `torch.bmm`'s."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import BODIES, harness
     by_name = {b.name: b for b in BODIES}
@@ -792,10 +813,10 @@ def check_grouped_popcount(flush, gen) -> dict:
         body, mxu = by_name[pop], by_name[twin]
         tick_ms, tick_mxu, tick_pms, tick_b, tick_o, tick_lib = (0.0,) * 6
         for name, g, n, k in moe_gemm_shapes(cfg):
-            for m in (TICK_ROWS, LIB_ROWS):
+            for m in GROUPED_ROWS:
                 gen.manual_seed(5000 + m + g + n + body.body_id)
                 x_ops, w_ops, ws, as_, bias = grouped_stack(body, g, m, n, k, gen)
-                label = f"gemm_kernel grouped {body.name} {name} M={m}"
+                label = f"pop_mma_kernel grouped {body.name} {name} M={m}"
                 acc = grouped_bit_equal(label, body, x_ops, w_ops, ws, as_, bias, k)
                 if not torch.equal(acc, harness.gemm_grouped(mxu, x_ops, w_ops, None, None,
                                                              k=k, out="acc")):
@@ -810,25 +831,23 @@ def check_grouped_popcount(flush, gen) -> dict:
                 msg = (f"[kernels] gemm_grouped_pop {body.name:15s} {name:4s} G={g} "
                        f"M={m:3d} N={n} K={k}: bit-equal to plain and to {g} ungrouped "
                        f"launches, == grouped {mxu.name}  kernel {ms:.4f} ms  grouped "
-                       f"{mxu.name} (tensor-core tile) {mms:.4f} ms  bound "
+                       f"{mxu.name} (int8 tile) {mms:.4f} ms  bound "
                        f"{max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3:.4f} ms")
                 if m == TICK_ROWS:
                     pms = time_ms(lambda: grouped_plain(body, x_ops, w_ops, ws, as_, None, k),
                                   1)
-                    msg += f"  plain {pms:.2f} ms"
                     cs = member_codes(body, x_ops, w_ops, k)
-                    xb = torch.stack([c[0] for c in cs]).to(torch.bfloat16)
-                    wb = torch.stack([c[1] for c in cs]).to(torch.bfloat16)
-                    lib = time_ms(lambda: torch.bmm(xb, wb), 10, flush)
-                    msg += f"  torch.bmm bf16 on the unpacked codes {lib:.4f} ms"
-                    del cs, xb, wb
+                    lib = bf16_mm_ms(torch.stack([c[0] for c in cs]),
+                                     torch.stack([c[1] for c in cs]), flush, 10)
+                    msg += f"  plain {pms:.2f} ms  torch.bmm bf16 on the unpacked codes {lib:.4f} ms"
+                    del cs
                     tick_lib += cfg.n_layers * lib
                     tick_ms += cfg.n_layers * ms
                     tick_mxu += cfg.n_layers * mms
                     tick_pms += cfg.n_layers * pms
                     tick_b += cfg.n_layers * nbytes
                     tick_o += cfg.n_layers * ops
-                else:
+                elif m == LIB_ROWS:
                     lib = int_mm_per_expert(member_codes(body, x_ops, w_ops, k), flush)
                     msg += f"  torch._int_mm x {g} experts {lib:.4f} ms"
                 log(msg)
@@ -864,17 +883,18 @@ def check_planes(body, cfg, flush, gen) -> dict:
     bias on and off); at P = bits the accumulator must also equal the direct
     body's (int8: K1, int4: K9) on the composed codes. Every (shape, M, P) is
     timed, and above 16 rows `torch._int_mm` (which needs M > 16) on the
-    composed codes beside
-    it. Logs the decode tick at each P and returns the per-decode-tick
-    record at P = bits: the int8 body runs every layer of an int8 `--impl
-    planes` tick, the int4 body w4a8's 26 body layers."""
+    composed codes beside it, at M = SLOTS one `torch.mm` in bf16 on them.
+    Logs the decode tick at each P and returns the per-decode-tick record
+    at P = bits (its library time the bf16 `torch.mm`'s): the int8 body runs
+    every layer of an int8 `--impl planes` tick, the int4 body w4a8's 26
+    body layers."""
     from repro_torch.core import pack
     from repro_torch.kernels import harness, i4gemm, i8gemm
     bits = body.w_stack
     direct = i8gemm.I8_DOT if bits == 8 else i4gemm.INT4_W_I8A
     depths = PLANE_DEPTHS + (bits,)
     tick = {"ms": dict.fromkeys(depths, 0.0), "bytes": dict.fromkeys(depths, 0.0),
-            "plain_ms": 0.0, "ops": 0.0}
+            "plain_ms": 0.0, "ops": 0.0, "lib": 0.0}
     for m in PLANE_ROWS:
         for si, (name, n, k, per_tick) in enumerate(gemm_shapes(cfg)):
             if bits == 4:
@@ -922,12 +942,14 @@ def check_planes(body, cfg, flush, gen) -> dict:
             if m == SLOTS:
                 pms = time_ms(lambda: harness.requant(body.plain((x,), (stack,), k),
                                                       ws, as_, None).to(torch.bfloat16), 2)
-                msg += f"  plain {pms:.3f} ms"
+                lib = bf16_mm_ms(x, codes.T, flush)
+                msg += f"  plain {pms:.3f} ms  torch.mm bf16 on the composed codes {lib:.4f} ms"
                 for p in depths:
                     tick["ms"][p] += per_tick * ms[p]
                     tick["bytes"][p] += per_tick * nbytes(p)
                 tick["plain_ms"] += per_tick * pms
                 tick["ops"] += per_tick * ops
+                tick["lib"] += per_tick * lib
             elif m > 16:
                 wi = codes.T.contiguous()
                 lib = time_ms(lambda: torch._int_mm(x, wi), 20, flush)
@@ -940,7 +962,8 @@ def check_planes(body, cfg, flush, gen) -> dict:
     log(f"[kernels] {body.name} {SLOTS}-slot decode tick, sum of launches timed one "
         f"by one: " + "; ".join(f"P={p} {tick['ms'][p]:.3f} ms (bound {bounds[p]:.4f})"
                                 for p in depths)
-        + f"; P=1 / P={bits} = {tick['ms'][1] / tick['ms'][bits]:.3f}")
+        + f"; P=1 / P={bits} = {tick['ms'][1] / tick['ms'][bits]:.3f}; torch.mm bf16 "
+        f"{tick['lib']:.3f} ms")
     seq = tick_in_sequence(body, cfg, flush, gen, depths)
     log(f"[kernels] {body.name} {SLOTS}-slot decode tick, its launches back to back "
         f"over distinct per-layer weights: "
@@ -950,7 +973,7 @@ def check_planes(body, cfg, flush, gen) -> dict:
     return {"name": body.name, "max_abs_err": 0.0, "ms": tick["ms"][bits],
             "plain_ms": tick["plain_ms"], "bound_ms": bounds[bits],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": tick["lib"]}
 
 
 def tick_in_sequence(body, cfg, flush, gen, depths=(None,)) -> dict:
@@ -1395,9 +1418,13 @@ def planes_and_spec(cfgs, packed, twins, outs, mixed, device_name, total) -> Non
 
 
 #: MoE serve runs: (arch, policy, layers; None = the arch's full depth)
+#: the 4-layer deepseek binary run: the one served path of grouped K3 (the
+#: full-depth ternary run serves grouped K4)
+GROUPED_K3_RUN = ("deepseek-moe-16b", "binary", 4)
 MOE_RUNS = (("deepseek-moe-16b", "het", None), ("deepseek-moe-16b", "int8", None),
             ("deepseek-moe-16b", "wt-a8", None), ("deepseek-moe-16b", "ternary", None),
-            ("phi3.5-moe-42b-a6.6b", "het", 4), ("deepseek-moe-16b", "w-ternary", 4))
+            ("phi3.5-moe-42b-a6.6b", "het", 4), ("deepseek-moe-16b", "w-ternary", 4),
+            GROUPED_K3_RUN)
 #: runs beside a MoE run's direct (popcount) one, on the same weights (packed
 #: with the plane twin for planes or a draft): (impl, spec_draft); each
 #: must emit the direct run's tokens
@@ -1453,43 +1480,41 @@ def phase_moe(device_name, launches) -> None:
     (K11 with the K9 body, and K1/K8/K9/K5), int8 (K11 with K1), wt-a8
     (grouped K8) and ternary (grouped K4), phi3.5-moe-42b-a6.6b at full
     width and 4 layers under het (its 32 bf16 layers are ~84 GB before
-    packing: cut), and deepseek under w-ternary (weight-only experts, no
-    K11) at 4 layers. Each from the port's seeded init, packed block by
+    packing: cut), and deepseek at 4 layers under w-ternary (weight-only
+    experts, no K11) and binary (GROUPED_K3_RUN: grouped K3, whose one
+    served path it is). Each from the port's seeded init, packed block by
     block, on the serve CLI's prompts: 4-slot tokens == 1-slot tokens,
     routing counters printed and checked, GEMM launches counted exactly.
     Beside a direct run, on its weights (MOE_BESIDE_RUNS): deepseek het
     with `--impl planes` and with `--spec-draft planes:1 --spec-k 4`,
     deepseek ternary with `--impl mxu` (grouped K7), phi3.5-moe het with
     `--impl planes` (K10 over expert stacks): tokens == the direct run's,
-    4-slot == 1-slot, launches counted exactly. Then deepseek at 4 layers
-    under each policy that sends the expert projections to the grouped
-    gemm_kernel bodies (K3, K4); one profiled 4-slot decode tick of deepseek
-    het, direct and under `--impl planes`, and of deepseek wt-a8."""
+    4-slot == 1-slot, launches counted exactly. Then one profiled 4-slot
+    decode tick of deepseek het, direct and under `--impl planes`, and of
+    deepseek wt-a8."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.common import ModelCtx
-    deep4 = tuple((MOE_ARCHS[0], pol, 4, impl) for pol, impl in FIRST_VERSION_RUNS)
-    for arch, policy, layers, impl in [r + ("popcount",) for r in MOE_RUNS] + list(deep4):
+    for arch, policy, layers in MOE_RUNS:
         cfg = dataclasses.replace(get_config(arch), policy=policy)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         gen = torch.Generator(device="cuda").manual_seed(3)
         t0 = time.perf_counter()
         run = (arch, policy, layers)
-        beside = MOE_BESIDE_RUNS.get(run, ()) if impl == "popcount" else ()
+        beside = MOE_BESIDE_RUNS.get(run, ())
         twins = any(b_impl == "planes" or draft for b_impl, draft in beside)
         sparams, train_b = transformer.init_for_serve(cfg, gen, "cuda", plane_twins=twins)
         torch.cuda.synchronize()
-        label = (f"{arch} policy={policy}" + (f" impl={impl}" if impl != "popcount"
-                                              else "") + f" ({cfg.n_layers} layers)")
+        label = f"{arch} policy={policy} ({cfg.n_layers} layers)"
         log(f"[moe] {label}: d_model {cfg.d_model}, {cfg.n_experts} experts top-"
             f"{cfg.top_k}, {cfg.n_shared_experts} shared, d_ff {cfg.d_ff}; train "
             f"layout {train_b / 2 ** 30:.2f} GiB, seeded init + pack block by block "
             f"in {time.perf_counter() - t0:.1f}s")
         reqs = prompts(cfg)
-        out = served(label, cfg, sparams, impl, reqs, device_name, launches,
-                     on_done=moe_checks(label, cfg, impl))
-        same_as_one_slot(label, cfg, sparams, impl, reqs, out)
+        out = served(label, cfg, sparams, "popcount", reqs, device_name, launches,
+                     on_done=moe_checks(label, cfg))
+        same_as_one_slot(label, cfg, sparams, "popcount", reqs, out)
         for b_impl, draft in beside:
             blabel = (f"{arch} policy={policy} " + (f"spec-draft={draft} spec-k={SPEC_K}"
                                                      if draft else f"impl={b_impl}")
@@ -1499,14 +1524,14 @@ def phase_moe(device_name, launches) -> None:
             if got != out:
                 raise AssertionError(f"{blabel}: tokens != the direct run's tokens")
             log(f"[moe] {blabel}: " + ("spec tokens == sequential tokens" if draft
-                                       else f"{b_impl} tokens == {impl} tokens"))
+                                       else f"{b_impl} tokens == popcount tokens"))
             same_as_one_slot(blabel, cfg, sparams, b_impl, reqs, got, draft)
         toks = torch.from_numpy(reqs[0]).to("cuda")[None]
         logits, _ = transformer.prefill(sparams, toks, transformer.build_specs(cfg),
                                         ModelCtx())
         if logits.shape != (1, 1, cfg.vocab) or not torch.isfinite(logits).all():
             raise AssertionError(f"{label}: prefill logits {tuple(logits.shape)}")
-        for p_impl in MOE_PROFILED.get(run, ()) if impl == "popcount" else ():
+        for p_impl in MOE_PROFILED.get(run, ()):
             profile_tick(cfg, sparams, device_name, p_impl)
         del sparams
         torch.cuda.empty_cache()

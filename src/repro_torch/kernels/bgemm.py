@@ -9,7 +9,8 @@ Two formulations of the same integer dot:
                     2*mismatches), `pop_mma_kernel` above runs the b1
                     tensor cores' AND-popc on x, w and their complements
                     (the dot is 2*agreements - K); a grouped call runs
-                    the first-version `gemm_kernel`. The plain version is
+                    `pop_mma_kernel` at every M, a 16-row tile up to 16
+                    rows, with a grid z. The plain version is
                     `core.pack.binary_dot_words`.
   BINARY_MXU      — both sides unpacked to ±1 int8 and dotted (the
                     reference's MXU body; on the card BODY_BINARY_MXU runs

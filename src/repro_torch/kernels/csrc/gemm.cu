@@ -35,20 +35,21 @@
 // trit planes or s4 nibbles), so each side is staged by its own density.
 //
 // MAC kinds. The popcount bodies work on packed words directly: XNOR sums
-// __popc(x ^ w) mismatches (dot = K - 2 * mismatches), gated XNOR adds
-// each word's active - 2 * disagree (pop_mac); above 8 rows the b1 tensor
-// cores take the same dots from AND-popc products (pop_mma_kernel). Every other
-// body is an int8 body: each side becomes words of four int8 codes of k,
-// multiplied by __dp4a (four MACs) or by the int8 tensor cores. int8 rows
-// are copied; K-major int8 weights are byte-transposed four columns at a
-// time; bits, trits and nibbles are unpacked to ±1, {-1, 0, +1} and
-// sign-extended s4 bytes. The P live plane words of a plane stack are
-// composed into the codes sum_i coeff_i * bit_i (each fits an int8,
-// truncated or not: a missing plane contributes 0), so the plane kernels'
-// dot is integer-identical to the reference's per-plane sum sum_i coeff_i *
-// (x . plane_i). The reference's MXU bodies dot the unpacked values in f32
-// and cast; this port takes the integer dot of the ±1 / trit codes, which
-// is the same number and equals the popcount bodies' dot bit for bit.
+// __popc(x ^ w) mismatches (dot = K - 2 * mismatches), gated XNOR adds each
+// word's active - 2 * disagree (pop_mac); above 8 rows, and grouped at
+// every M, the b1 tensor cores take the same dots from AND-popc products
+// (pop_mma_kernel). Every other body is an int8 body: each side becomes
+// words of four int8 codes of k, multiplied by __dp4a (four MACs) or by the
+// int8 tensor cores. int8 rows are copied; K-major int8 weights are
+// byte-transposed four columns at a time; bits, trits and nibbles are
+// unpacked to ±1, {-1, 0, +1} and sign-extended s4 bytes. The P live plane
+// words of a plane stack are composed into the codes sum_i coeff_i * bit_i
+// (each fits an int8, truncated or not: a missing plane contributes 0), so
+// the plane kernels' dot is integer-identical to the reference's per-plane
+// sum sum_i coeff_i * (x . plane_i). The reference's MXU bodies dot the
+// unpacked values in f32 and cast; this port takes the integer dot of the
+// ±1 / trit codes, which is the same number and equals the popcount bodies'
+// dot bit for bit.
 //
 // Which kernel runs each body:
 // - Called ungrouped, every body runs two kernels, chosen by M. Up to
@@ -76,10 +77,12 @@
 // - Grouped (K11, `repro_gemm_grouped`: G GEMMs of one shape in one
 //   launch, every operand with a leading G axis: x (G, M, .), w (G, N, .)
 //   or (G, K, N), w_scale and bias (G, N), a_scale (G, M), out (G, M, N)),
-//   the int8, s4, plane, mxu and wt-i8a bodies run i8_mma_kernel /
+//   every body runs its tensor-core kernel at every M with blockIdx.z over
+//   the groups: the int8, s4, plane, mxu and wt-i8a bodies i8_mma_kernel /
 //   s4_mma_kernel / planes_mma_kernel / bmxu_mma_kernel / tmxu_mma_kernel /
-//   wt_mma_kernel at every M with blockIdx.z over the groups, on a 16-row
-//   tile (BN = 128) up to G_SMALL_M = 16 rows and the 128-row one above.
+//   wt_mma_kernel on a 16-row tile (BN = 128) up to G_SMALL_M = 16 rows and
+//   the 128-row one above, the popcount bodies (K3, K4) pop_mma_kernel on
+//   its b1 tile, 16 rows (BN = 128) up to G_SMALL_M and 64 above.
 //   The MoE expert projections are G = E weight stacks at decode M = slots
 //   x capacity (16 for 4 slots): the weight bytes of all experts, and for
 //   the bit-plane bodies the weight codes each block unpacks, bound them.
@@ -87,18 +90,6 @@
 //   N, K/32) stack (the self-speculative draft's truncation): the kernel
 //   takes P, the plane stride and the member stride, so it reads the P live
 //   planes of each expert in place and the planes past P never.
-// - gemm_kernel runs the grouped popcount bodies (K3, K4), which MoE archs
-//   served under --policy binary, ternary or mixed reach. It is still the
-//   first version, the TPU grid with its sequential K axis turned into a
-//   loop inside the block: a block owns one BM x BN output tile, walks K in
-//   KT-word stages (KT packed words = 1024 k) through shared memory, and
-//   keeps its int32 accumulators in registers. Each warp owns one output
-//   column per lane and rows warp, warp+4, ... of the tile; rows past M are
-//   skipped warp-uniformly and columns past N are masked, so ragged M and N
-//   need no padding (the Pallas path pads M to 8); the grid's third
-//   dimension is the groups. It neither pipelines its loads (32-word
-//   stages, two barriers each) nor uses the tensor cores: its redesign is
-//   queued work.
 //
 // Exactness. The epilogue keeps the reference's order exactly and uses
 // __fmul_rn/__fadd_rn, which nvcc never contracts into an FMA, and rounds
@@ -115,13 +106,6 @@
 #include "ptx.cuh"
 
 namespace {
-
-constexpr int BM = 16;        // output rows per block
-constexpr int BN = 32;        // output columns per block (one per lane)
-constexpr int KT = 32;        // K stage, in packed words
-constexpr int THREADS = 128;  // 4 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int RPT = BM / WARPS;  // rows per thread
 
 enum { BODY_I8 = 0, BODY_BINARY = 1, BODY_TERNARY = 2, BODY_BINARY_MXU = 3,
        BODY_TERNARY_MXU = 4, BODY_TERNARY_W_I8A = 5, BODY_INT4_W_I8A = 6,
@@ -146,22 +130,6 @@ __device__ __forceinline__ int pop_finish(int acc, int K) {
   return NP == 1 ? K - 2 * acc : acc;
 }
 
-// Stage packed words kw0 .. kw0+KT-1 of rows r0 .. r0+R-1 of the NP planes
-// s0 (, s1) into dst[plane][row][word]. Rows past `nrows` and words past the
-// row's W words are zero: they are never read by the MAC loop (it stops at
-// K) and a zero row only feeds outputs that are never written.
-template <int NP, int R>
-__device__ __forceinline__ void stage_rows(uint32_t (*dst)[R][KT + 1],
-                                           const uint32_t* s0, const uint32_t* s1,
-                                           int r0, int nrows, int kw0, int W, int tid) {
-  for (int i = tid; i < R * KT; i += THREADS) {
-    const int r = i / KT, c = i % KT, kw = kw0 + c;
-    const bool ok = r < nrows && kw < W;
-    dst[0][r][c] = ok ? s0[(size_t)(r0 + r) * W + kw] : 0u;
-    if constexpr (NP > 1) dst[1][r][c] = ok ? s1[(size_t)(r0 + r) * W + kw] : 0u;
-  }
-}
-
 // The fused epilogue for output (m, n) at out[idx]: the raw int32 dot, or
 // ((float)dot * w_scale[n]) * a_scale[m] + bias[n] rounded to bf16, in the
 // reference's order with no FMA contraction.
@@ -179,72 +147,6 @@ __device__ __forceinline__ void store_out(void* out, int out_acc, size_t idx,
   if (bias) y = __fadd_rn(y, bias[n]);
   static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(y);
 }
-
-// K3 (NP = 1) / K4 (NP = 2) grouped: bits or (mask, sign) trits on both
-// sides, x (G, M, K/32) and w (G, N, K/32) words a plane, x1 / w1 the sign
-// planes
-template <int NP>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ x1,
-            const uint32_t* __restrict__ w0, const uint32_t* __restrict__ w1,
-            const float* __restrict__ w_scale, const float* __restrict__ a_scale,
-            const float* __restrict__ bias, void* __restrict__ out, int out_acc,
-            int M, int N, int K, long long x_group_words,
-            long long w_group_words) {
-  // this block's group member: offset every operand by the group's stride
-  const long long g = blockIdx.z;
-  x0 += g * x_group_words;
-  if (x1) x1 += g * x_group_words;
-  w0 += g * w_group_words;
-  if (w1) w1 += g * w_group_words;
-  if (w_scale) w_scale += g * N;
-  if (a_scale) a_scale += g * M;
-  if (bias) bias += g * N;
-  const size_t obase = (size_t)g * M * N;
-  // +1 word of padding: lane-strided reads of ws hit 32 distinct banks
-  __shared__ uint32_t xs[NP][BM][KT + 1];
-  __shared__ uint32_t ws[NP][BN][KT + 1];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int rows = min(BM, M - m0);
-  const int W = K / 32;                            // packed words per row
-
-  int acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0;
-
-  for (int kw0 = 0; kw0 < W; kw0 += KT) {
-    stage_rows<NP, BM>(xs, x0, x1, m0, rows, kw0, W, tid);
-    stage_rows<NP, BN>(ws, w0, w1, n0, min(BN, N - n0), kw0, W, tid);
-    __syncthreads();
-
-    const int kt = min(KT, W - kw0);
-    for (int c = 0; c < kt; ++c) {
-      const uint32_t wa = ws[0][lane][c], wb = NP > 1 ? ws[NP - 1][lane][c] : 0u;
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = warp + i * WARPS;
-        if (r < rows)                           // warp-uniform
-          acc[i] = pop_mac<NP>(acc[i], xs[0][r][c], NP > 1 ? xs[NP - 1][r][c] : 0u,
-                               wa, wb);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int n = n0 + lane;
-  if (n >= N) return;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = warp + i * WARPS;
-    if (r >= rows) continue;
-    const int m = m0 + r;
-    store_out(out, out_acc, obase + (size_t)m * N + n, pop_finish<NP>(acc[i], K),
-              w_scale, a_scale, bias, m, n);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Shared by the K1, K7, K9 and K10 kernels below
@@ -1128,7 +1030,8 @@ i8_stream_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 // 5-6 blocks an SM (they spill), trit codes by prmt's sign mode (4 ops a
 // word, not 5); K8's permuted activations gained 3-7 %, kept.
 //
-// Groups (K11, K10 over expert stacks, grouped K7 and K8): blockIdx.z is
+// Groups (K11, K10 over expert stacks, grouped K7 and K8; grouped K3 and
+// K4 on the b1 tile below take the same TcArgs): blockIdx.z is
 // the member of a grouped launch, and each block offsets x, w, w_scale (N),
 // a_scale (M), bias (N) and out (M x N) by it (group_member); an ungrouped
 // launch is the one member z = 0. A trit operand's sign plane lies a fixed
@@ -1543,18 +1446,17 @@ wt_mma_kernel(TcArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// K3 / K4, large M: the packed operands on the b1 tensor cores
+// K3 / K4 above 8 rows, and grouped: the packed operands on the b1 tensor cores
 // ---------------------------------------------------------------------------
 
-// A 64 x 64 output tile of 8 warps of 16 x 32 (4 along M x 2 along N) on
-// mma.sync m16n8k256 b1 with AND-popc (mma_b1; BMMA in the SASS, so the
-// tensor cores run it). Its fragments have the s8 m16n8k32 layout with a
-// register holding one packed word (32 k) instead of four codes, so a bit
-// tile staged as rows of packed words is read by the int8 tile's ldmatrix
-// addressing unchanged, 32 bytes = 256 k a step. Neither side is unpacked:
-// a 3-stage cp.async ring brings
-// KB bytes (8 KB k) of each plane of each row and column straight into the
-// padded rows the fragments are loaded from (PopTile::LD: the 8 rows of an
+// An output tile of warps of 16 x 32 on mma.sync m16n8k256 b1 with AND-popc
+// (mma_b1; BMMA in the SASS, so the tensor cores run it). Its fragments
+// have the s8 m16n8k32 layout with a register holding one packed word (32
+// k) instead of four codes, so a bit tile staged as rows of packed words is
+// read by the int8 tile's ldmatrix addressing unchanged, 32 bytes = 256 k a
+// step. Neither side is unpacked: a 3-stage cp.async ring brings KB bytes
+// (8 KB k) of each plane of each row and column straight into the padded
+// rows the fragments are loaded from (PopTile::LD: the 8 rows of an
 // ldmatrix in distinct banks), and the AND-popc identities run on the
 // fragments in registers:
 //   binary   agree = P(x, w) + P(~x, ~w), dot = 2 agree - K. Zero words past
@@ -1568,73 +1470,99 @@ wt_mma_kernel(TcArgs a) {
 //            2 agree - active: three products per 256 k into two
 //            accumulator sets.
 // Each is exact in int32, so the dot is the popcount bodies' bit for bit.
-// 64 rows, not the int8 tile's 128: at 32 x 32 a warp the ternary
-// accumulators and fragments spilled, and a 32-row prefill bucket pads
-// fewer rows. Bound: the b1 products (2 or 3 per 256 k) at M = 256, for
-// which Hopper publishes no rate; up to the 32-row bucket the launch and
-// the ring's first stages.
-constexpr int P_THREADS = 256;
-constexpr int P_BM = 64, P_BN = 64;
-constexpr int P_STAGES = 3;
+// Two row tiles, each with blockIdx.z the member of a grouped launch
+// (group_member, as the int8 tiles; an ungrouped launch is member 0):
+//   64 rows, 8 warps (4 along M x 2 along N, BN = 64), 3 ring stages:
+//            above SMALL_M rows ungrouped (verify rows, prefill buckets)
+//            and above G_SMALL_M grouped. 64, not the int8 tile's 128: at
+//            32 x 32 a warp the ternary accumulators and fragments spilled,
+//            and a 32-row prefill bucket pads fewer rows. Bound: the b1
+//            products (2 or 3 per 256 k), for which Hopper publishes no
+//            rate (XOR-popc, one product for binary, compiles for sm_90a
+//            but ran 1.16-1.34x slower).
+//   16 rows, 4 warps along N (BN = 128), 2 ring stages: a grouped launch up
+//            to G_SMALL_M rows an expert (the MoE decode tick), so that no
+//            padding rows are staged or multiplied. Not wgmma, whose M is 64
+//            at least. A stage covers 1024 k (binary) or 512 k (ternary),
+//            against the int8 tile's 128, so an expert's K is 2-3 stages.
+//            Blocks in flight decide its speed: 2 stages (41 / 46 KB) fit 4
+//            blocks an SM in 128 registers, where 3 stages fit 3 and took
+//            1.12-1.2x the time. Measured on the card at deepseek's tick
+//            (chip_ab.py, PERF.md), against the 3-stage tile: the 64-row
+//            tile with a grid z 1.6-1.7x, 8 warps 1.15-1.2x; against this
+//            one, 5 blocks, 2 warps, half or whole-row stages and one b1
+//            product for binary (row and column popcounts on the CUDA
+//            cores) no faster. It runs at 2.0-2.4x its byte bound.
+constexpr int P_BM = 64;           // rows of the tile above SMALL_M / G_SMALL_M
 
-template <int NP> struct PopTile {
+template <int NP, int BM> struct PopTile {
+  static constexpr int STAGES = BM == 16 ? 2 : 3;          // cp.async ring
+  static constexpr int THREADS = BM == 16 ? 128 : 256;
+  static constexpr int WARPS_M = BM / 16;                  // 1 | 4
+  static constexpr int BN = 32 * (THREADS / 32 / WARPS_M); // 128 | 64
   static constexpr int KB = NP == 1 ? 128 : 64;  // bytes of a row and plane a stage
   static constexpr int KS = 8 * KB;              // k a stage: 1024 | 512
   static constexpr int LD = KB + 16;             // padded row pitch, bytes
-  static constexpr int A = NP * P_BM * LD;       // activation bytes of a stage
-  static constexpr int STAGE = NP * (P_BM + P_BN) * LD;   // bytes of a stage
+  static constexpr int A = NP * BM * LD;         // activation bytes of a stage
+  static constexpr int STAGE = NP * (BM + BN) * LD;   // bytes of a stage
+  static constexpr int SMEM = STAGES * STAGE;
+  // resident blocks an SM (launch bounds: 128 registers a thread)
+  static constexpr int BLOCKS = THREADS == 256 ? 2 : 4;
+  static_assert(WARPS_M * 16 == BM && BN % 32 == 0, "warp grid");
 };
 
 // cp.async the words kw0 .. kw0 + KB/4 - 1 of each plane of rows row0 ..
 // row0 + ROWS - 1 (`valid` of them real, plane p at src + p * pstride) into
 // dst [plane][ROWS][LD], zero past `valid` and past K; `vec`: 16-byte
-// copies (rows 16-byte aligned, K/32 a multiple of 4)
-template <int NP, int ROWS>
+// copies (rows 16-byte aligned, K/32 a multiple of 4); by the threads of
+// the tile P
+template <int NP, typename P, int ROWS>
 __device__ __forceinline__ void pop_stage(const uint32_t* src, long long pstride, int row0,
                                           int valid, int kw, int kw0, uint8_t* dst, int vec,
                                           int tid) {
-  using P = PopTile<NP>;
+  constexpr int LD = P::LD, THREADS = P::THREADS;
   constexpr int C = P::KB / 16;                  // 16-byte pieces of a row
   if (vec) {
-    for (int i = tid; i < NP * ROWS * C; i += P_THREADS) {
+    for (int i = tid; i < NP * ROWS * C; i += THREADS) {
       const int p = i / (ROWS * C), r = i / C % ROWS, c = i % C;
       const int row = row0 + r, kq = kw0 + 4 * c;
       const bool ok = row < valid && kq < kw;
-      cp_async16(dst + (p * ROWS + r) * P::LD + 16 * c,
+      cp_async16(dst + (p * ROWS + r) * LD + 16 * c,
                  ok ? src + p * pstride + (size_t)row * kw + kq : src, ok ? 16 : 0);
     }
   } else {
-    for (int i = tid; i < NP * ROWS * C * 4; i += P_THREADS) {
+    for (int i = tid; i < NP * ROWS * C * 4; i += THREADS) {
       const int p = i / (ROWS * C * 4), r = i / (C * 4) % ROWS, j = i % (C * 4);
       const int row = row0 + r, kq = kw0 + j;
       const bool ok = row < valid && kq < kw;
-      cp_async4(dst + (p * ROWS + r) * P::LD + 4 * j,
+      cp_async4(dst + (p * ROWS + r) * LD + 4 * j,
                 ok ? src + p * pstride + (size_t)row * kw + kq : src, ok ? 4 : 0);
     }
   }
 }
 
 // bits (NP = 1) or (mask, sign) trits (NP = 2) on both sides: x (M, K/32)
-// words a plane, the sign plane at x + xps words, w (N, K/32) likewise
-template <int NP>
-__global__ void __launch_bounds__(P_THREADS, 2)
-pop_mma_kernel(const uint32_t* __restrict__ x, long long xps,
-               const uint32_t* __restrict__ w, long long wps,
-               const float* __restrict__ w_scale, const float* __restrict__ a_scale,
-               const float* __restrict__ bias, void* __restrict__ out, int out_acc, int M,
-               int N, int K, int xvec, int wvec) {
-  using P = PopTile<NP>;
+// words a plane, the sign plane a.xpstride words on; w (N, K/32) likewise,
+// a.pstride
+template <int NP, int BM>
+__global__ void __launch_bounds__(PopTile<NP, BM>::THREADS, PopTile<NP, BM>::BLOCKS)
+pop_mma_kernel(TcArgs args) {
+  using P = PopTile<NP, BM>;
+  constexpr int BN = P::BN;
+  const TcArgs a = group_member(args);
+  const auto* x = reinterpret_cast<const uint32_t*>(a.x);
+  const auto* w = static_cast<const uint32_t*>(a.w);
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % 4, wn = warp / 4;
-  const int m0 = blockIdx.y * P_BM, n0 = blockIdx.x * P_BN;
-  const int kw = K / 32, nst = (K + P::KS - 1) / P::KS;
+  const int wm = warp % P::WARPS_M, wn = warp / P::WARPS_M;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int K = a.K, kw = K / 32, nst = (K + P::KS - 1) / P::KS;
 
   auto load_stage = [&](int st) {
-    uint8_t* s = smem + (st % P_STAGES) * P::STAGE;
+    uint8_t* s = smem + (st % P::STAGES) * P::STAGE;
     const int kw0 = st * (P::KS / 32);
-    pop_stage<NP, P_BM>(x, xps, m0, M, kw, kw0, s, xvec, tid);
-    pop_stage<NP, P_BN>(w, wps, n0, N, kw, kw0, s + P::A, wvec, tid);
+    pop_stage<NP, P, BM>(x, a.xpstride, m0, a.M, kw, kw0, s, a.xvec, tid);
+    pop_stage<NP, P, BN>(w, a.pstride, n0, a.N, kw, kw0, s + P::A, a.wvec, tid);
   };
 
   int acc[4][4], act[4][4];          // act: ternary's active count
@@ -1644,28 +1572,28 @@ pop_mma_kernel(const uint32_t* __restrict__ x, long long xps,
     for (int c = 0; c < 4; ++c) acc[j][c] = act[j][c] = 0;
 
 #pragma unroll
-  for (int s = 0; s < P_STAGES - 1; ++s) {
+  for (int s = 0; s < P::STAGES - 1; ++s) {
     if (s < nst) load_stage(s);
     cp_async_commit();
   }
   for (int st = 0; st < nst; ++st) {
-    cp_async_wait<P_STAGES - 2>();        // this stage's copies have landed
+    cp_async_wait<P::STAGES - 2>();        // this stage's copies have landed
     __syncthreads();                      // ... everyone's; the last stage is consumed
-    if (st + P_STAGES - 1 < nst) load_stage(st + P_STAGES - 1);
+    if (st + P::STAGES - 1 < nst) load_stage(st + P::STAGES - 1);
     cp_async_commit();
-    const uint8_t* As = smem + (st % P_STAGES) * P::STAGE;
+    const uint8_t* As = smem + (st % P::STAGES) * P::STAGE;
     const uint8_t* Bs = As + P::A;
 #pragma unroll
     for (int ks = 0; ks < P::KB / 32; ++ks) {
       uint32_t af[NP][4], bf[NP][4][2];
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
-        ldsm_x4(af[p], As + (p * P_BM + wm * 16 + (lane & 15)) * P::LD + 32 * ks +
+        ldsm_x4(af[p], As + (p * BM + wm * 16 + (lane & 15)) * P::LD + 32 * ks +
                            16 * (lane >> 4));
 #pragma unroll
         for (int nt = 0; nt < 4; nt += 2) {
           uint32_t r[4];
-          ldsm_x4(r, Bs + (p * P_BN + wn * 32 + nt * 8 + (lane & 7) + 8 * (lane >> 4)) *
+          ldsm_x4(r, Bs + (p * BN + wn * 32 + nt * 8 + (lane & 7) + 8 * (lane >> 4)) *
                               P::LD + 32 * ks + 16 * ((lane >> 3) & 1));
           bf[p][nt][0] = r[0];
           bf[p][nt][1] = r[1];
@@ -1708,21 +1636,34 @@ pop_mma_kernel(const uint32_t* __restrict__ x, long long xps,
       const int m = m0 + wm * 16 + g + 8 * (e >> 1);
       const int n = n0 + wn * 32 + nt * 8 + 2 * t4 + (e & 1);
       const int dot = NP == 1 ? 2 * (acc[nt][e] - pad) - K : 2 * acc[nt][e] - act[nt][e];
-      if (m < M && n < N)
-        store_out(out, out_acc, (size_t)m * N + n, dot, w_scale, a_scale, bias, m, n);
+      if (m < a.M && n < a.N)
+        store_out(a.out, a.out_acc, (size_t)m * a.N + n, dot, a.w_scale, a.a_scale, a.bias,
+                  m, n);
     }
 }
 
-// `groups` GEMMs (gridDim.z) of the tile's kernel
-template <int WK, int BM, typename F>
-int launch_mma(F* kernel, const TcArgs& a, int groups, cudaStream_t stream) {
-  using T = Tc<WK, BM>;
+// `groups` GEMMs (gridDim.z) of a tile T's kernel (T::THREADS threads,
+// T::SMEM bytes of shared memory, T::BN columns and BM rows a block)
+template <typename T, int BM, typename F>
+int launch_tile(F* kernel, const TcArgs& a, int groups, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((a.N + T::BN - 1) / T::BN, (a.M + BM - 1) / BM, groups);
   kernel<<<grid, T::THREADS, T::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the b1 tile of `groups` GEMMs: BM = 16 or P_BM rows
+template <int NP, int BM>
+int launch_pop_mma(const TcArgs& a, int groups, cudaStream_t stream) {
+  return launch_tile<PopTile<NP, BM>, BM>(pop_mma_kernel<NP, BM>, a, groups, stream);
+}
+
+// `groups` GEMMs (gridDim.z) of the int8 tile's kernel
+template <int WK, int BM, typename F>
+int launch_mma(F* kernel, const TcArgs& a, int groups, cudaStream_t stream) {
+  return launch_tile<Tc<WK, BM>, BM>(kernel, a, groups, stream);
 }
 
 // -- launchers ---------------------------------------------------------------
@@ -1893,16 +1834,12 @@ int launch_pop(const void* x0, const void* x1, const void* w0, const void* w1,
     return launch_mxu_stream<NP, SMALL_M, S_POP>(x, xps, w, wps, w_scale, a_scale, bias,
                                                  out, out_acc, M, N, K, wvec, stream);
   }
-  const int xvec = kw % 4 == 0 && xps % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  auto* kernel = pop_mma_kernel<NP>;
-  constexpr int smem = P_STAGES * PopTile<NP>::STAGE;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((N + P_BN - 1) / P_BN, (M + P_BM - 1) / P_BM);
-  kernel<<<grid, P_THREADS, smem, stream>>>(x, xps, w, wps, w_scale, a_scale, bias, out,
-                                            out_acc, M, N, K, xvec, wvec);
-  return (int)cudaGetLastError();
+  TcArgs a = tc_args(x, w, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.pstride = wps;
+  a.xpstride = xps;
+  a.xvec = kw % 4 == 0 && xps % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.wvec = wvec;
+  return launch_pop_mma<NP, P_BM>(a, 1, stream);
 }
 
 // K8: int8 activations (M, K), 16-byte aligned, x (mask, sign) trit weight
@@ -2104,30 +2041,32 @@ int launch_grouped_bits(int groups, const void* x0, const void* x1, const void* 
              : launch_mma<WK, T_BM>(bits_mma_kernel<WK, T_BM>(), a, groups, stream);
 }
 
+// K3 (NP = 1) and K4 (NP = 2) grouped: `groups` GEMMs of one shape in one
+// launch of the b1 tile, blockIdx.z the member; x0 / w0 advance by xg / wg
+// bytes from one member to the next, and the sign planes x1 / w1 (trits)
+// lie a fixed distance from them, the same for every member. The 16-row
+// tile up to G_SMALL_M rows, the 64-row one above.
+template <int NP>
+int launch_grouped_pop(int groups, const void* x0, const void* x1, const void* w0,
+                       const void* w1, const float* w_scale, const float* a_scale,
+                       const float* bias, void* out, int out_acc, int M, int N, int K,
+                       long long xg, long long wg, cudaStream_t stream) {
+  const auto xa = reinterpret_cast<uintptr_t>(x0), wa = reinterpret_cast<uintptr_t>(w0);
+  if (K % 32 || (NP == 2 && (!x1 || !w1))) return (int)cudaErrorInvalidValue;
+  if (xa % 4 || wa % 4 || xg % 4 || wg % 4) return (int)cudaErrorMisalignedAddress;
+  TcArgs a = tc_args(x0, w0, w_scale, a_scale, bias, out, out_acc, M, N, K);
+  a.xg = xg;
+  a.wg = wg;
+  a.pstride = NP == 2 ? words_between(w0, w1) : 0;
+  a.xpstride = NP == 2 ? words_between(x0, x1) : 0;
+  const int kw = K / 32;
+  a.xvec = kw % 4 == 0 && a.xpstride % 4 == 0 && xa % 16 == 0 && xg % 16 == 0;
+  a.wvec = kw % 4 == 0 && a.pstride % 4 == 0 && wa % 16 == 0 && wg % 16 == 0;
+  return M <= G_SMALL_M ? launch_pop_mma<NP, 16>(a, groups, stream)
+                        : launch_pop_mma<NP, P_BM>(a, groups, stream);
+}
+
 }  // namespace
-
-extern "C" void repro_gemm_tile(int* bm, int* bn, int* kt) {
-  *bm = BM;
-  *bn = BN;
-  *kt = KT;
-}
-
-// K3 / K4 grouped: one launch of gemm_kernel over `groups` GEMMs on
-// `stream`; returns the launch's cudaError_t.
-static int launch_grouped_pop(int body, int groups, const void* x0, const void* x1,
-                              const void* w0, const void* w1, const float* w_scale,
-                              const float* a_scale, const float* bias, void* out,
-                              int out_acc, int M, int N, int K, long long x_group_words,
-                              long long w_group_words, cudaStream_t stream) {
-  if (K % 32 || (body == BODY_TERNARY && (!x1 || !w1))) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, groups);
-  auto* kernel = body == BODY_BINARY ? gemm_kernel<1> : gemm_kernel<2>;
-  kernel<<<grid, THREADS, 0, stream>>>(
-      static_cast<const uint32_t*>(x0), static_cast<const uint32_t*>(x1),
-      static_cast<const uint32_t*>(w0), static_cast<const uint32_t*>(w1), w_scale,
-      a_scale, bias, out, out_acc, M, N, K, x_group_words, w_group_words);
-  return (int)cudaGetLastError();
-}
 
 // body: one of the BODY_* constants. x1/w1 are the sign planes of trit
 // operands (NULL otherwise); w_scale/a_scale/bias may be NULL (identity).
@@ -2187,8 +2126,8 @@ extern "C" int repro_gemm(int body, const void* x0, const void* x1,
 // w_plane_stride: the live planes P of a plane-stacked weight (G, P, N,
 // K/32) and the words between two planes of a member (ignored by the other
 // bodies); the member stride may exceed P planes (a leading-P slice of a
-// deeper stack). Every body but the popcount ones (K3, K4: gemm_kernel)
-// runs the tensor-core tile.
+// deeper stack). Every body runs its tensor-core tile: the int8 tiles, or
+// for the popcount bodies (K3, K4) the b1 tile.
 extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
                                   const void* x1, const void* w0,
                                   const void* w1, const float* w_scale,
@@ -2223,10 +2162,11 @@ extern "C" int repro_gemm_grouped(int body, int groups, const void* x0,
       return launch_grouped_bits<WK_WT>(groups, x0, x1, w0, w1, w_scale, a_scale, bias,
                                         out, out_acc, M, N, K, xg, wg, stream);
     case BODY_BINARY:
+      return launch_grouped_pop<1>(groups, x0, x1, w0, w1, w_scale, a_scale, bias, out,
+                                   out_acc, M, N, K, xg, wg, stream);
     case BODY_TERNARY:
-      return launch_grouped_pop(body, groups, x0, x1, w0, w1, w_scale, a_scale, bias,
-                                out, out_acc, M, N, K, x_group_words, w_group_words,
-                                stream);
+      return launch_grouped_pop<2>(groups, x0, x1, w0, w1, w_scale, a_scale, bias, out,
+                                   out_acc, M, N, K, xg, wg, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -29,9 +29,10 @@ one prep over all (E·M, K) rows, then for a weight-and-activation cell ONE
 `harness.gemm_grouped` launch (K11; for a plane cell K10 over the expert
 stacks, a truncated stack read in place) over the E weight stacks, and for
 a weight-only or dense cell one batched torch product. Not ported: tensor
-and expert parallelism. There is no tune table: the CUDA tile is
-compile-time (`harness.Tile`), and the reference's `tune_cpu.json` holds
-interpret-mode CPU picks that say nothing about the card.
+and expert parallelism. There is no tune table: the CUDA tiles are
+compile-time constants of `csrc/gemm.cu`, and the reference's
+`tune_cpu.json` holds interpret-mode CPU picks that say nothing about the
+card.
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ other. `gemm_grouped` (K11) runs G GEMMs of one shape, every operand
 carrying a leading group axis, as ONE launch (`repro_gemm_grouped`),
 counted by the body's grouped launcher (`MacBody.grouped`): the int8,
 s4, plane (K10 over expert stacks), mxu (K7) and wt-i8a (K8) bodies on the
-tensor-core tile, the popcount bodies (K3, K4) on the first-version
-template `gemm_kernel`.
+int8 tensor-core tile, the popcount bodies (K3, K4) on the b1 tensor-core
+tile (`pop_mma_kernel`), each with a grid z over the members.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from .build import Kernel, load
+from .build import Kernel
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -60,7 +60,8 @@ _GROUPED_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
 #: that a run tells grouped launches from ungrouped ones and each grouped
 #: form from the others: the int8 and s4 bodies (K11's tensor-core tile) ...
 GEMM_GROUPED = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
-#: ... the popcount bodies (K3, K4 on `gemm_kernel`) ...
+#: ... the popcount bodies (K3, K4: `pop_mma_kernel`, the b1 tile, 16 rows
+#: up to 16 rows a member and 64 above) ...
 GEMM_GROUPED_POP = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
 #: ... the plane bodies (K10 over expert stacks) ...
 GEMM_GROUPED_PLANES = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
@@ -68,28 +69,6 @@ GEMM_GROUPED_PLANES = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
 GEMM_GROUPED_MXU = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
 #: ... and the wt-i8a body (K8: `wt_mma_kernel`)
 GEMM_GROUPED_WT_I8A = Kernel("gemm", "repro_gemm_grouped", _GROUPED_ARGS)
-
-
-@dataclasses.dataclass(frozen=True)
-class Tile:
-    """The block shape of `gemm_kernel`, which runs the grouped calls of the
-    popcount bodies (K3, K4): bm x bn outputs per block, bkq packed 32-bit
-    words of K per shared-memory stage. Every other grouped body runs the
-    tensor-core tile (16 rows up to 16, 128 above; `csrc/gemm.cu`).
-    Compile-time constants of `csrc/gemm.cu`; `kernel_tile()` reads them
-    from the built library."""
-    bm: int = 16
-    bn: int = 32
-    bkq: int = 32
-
-
-def kernel_tile() -> Tile:
-    fn = load("gemm").repro_gemm_tile
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-    fn.restype = None
-    vals = [ctypes.c_int() for _ in range(3)]
-    fn(*(ctypes.byref(v) for v in vals))
-    return Tile(*(v.value for v in vals))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,9 +214,10 @@ def gemm_grouped(body: MacBody, x_ops: Sequence[torch.Tensor],
     Member g is exactly `gemm(body, x_ops[:, g], ...)`: the reference's
     `gemm_grouped` is that call under `jax.vmap`. On CPU tensors the body's
     plain version runs once per member, then `requant`; on CUDA tensors one
-    `repro_gemm_grouped` launch runs every member (its grid's third
-    dimension), never a loop of `gemm` launches, and adds one to
-    `body.grouped`'s count."""
+    `repro_gemm_grouped` launch of the body's tensor-core tile (int8, or b1
+    for the popcount bodies) runs every member (its grid's third dimension),
+    never a loop of `gemm` launches, and adds one to `body.grouped`'s
+    count."""
     if out not in ("requant", "acc"):
         raise ValueError(f"out={out!r}")
     if out == "requant" and (w_scale is None or a_scale is None):

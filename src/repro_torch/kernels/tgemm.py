@@ -11,8 +11,9 @@ Trits are two bit-planes (mask, sign) per `core.pack`.
                      word's active - 2*disagree, `pop_mma_kernel` above runs
                      the b1 tensor cores' AND-popc on the positive and
                      negative planes (m & ~s, m & s) and the masks, dot =
-                     2*agree - active; a grouped call runs the
-                     first-version `gemm_kernel`. The plain version is
+                     2*agree - active; a grouped call runs
+                     `pop_mma_kernel` at every M, a 16-row tile up to 16
+                     rows, with a grid z. The plain version is
                      `core.pack.ternary_dot_words`.
   TERNARY_MXU      — both sides unpacked to {-1,0,+1} int8 and dotted
                      (BODY_TERNARY_MXU: `tmxu_stream_kernel` up to 8 rows,

@@ -29,9 +29,9 @@ decoding's tokens, and a verify row's logits are bit-equal to the
 sequential decode step's at the same position. The grouped GEMM (K11) is
 bit-equal to its plain version and to G separate ungrouped launches for
 every body it serves, in one launch counted once by the body's grouped
-launcher (the int8, s4, mxu and wt-i8a bodies on both of their row tiles,
-at G up to 64, the mxu and wt-i8a bodies at K whole and ragged against the
-tile's 128-k stage; the grouped mxu accumulators equal the grouped
+launcher (every body on both of its row tiles, at G up to 64, the mxu,
+wt-i8a and popcount bodies at K whole and ragged against the tile's stage
+and its 16-byte loads; the grouped mxu accumulators equal the grouped
 popcount bodies'), and so is K10 over expert stacks (the
 plane bodies grouped, at P = 1 and bits live planes, M = 4, 16 and 128,
 and at P = bits equal to K11's int4 / int8 body on the composed codes),
@@ -465,16 +465,39 @@ def test_grouped_bit_bodies_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k
     _check_grouped(cuda, body, g, m, k, n)
 
 
+#: K3's and K4's grouped bodies on both b1 row tiles (16 rows up to 16, 64
+#: above): G = 1, 3 and 64, M on each side of both switches (1, 4, 16 | 17,
+#: 33, 64 | 65, 130), K a multiple of the 32-k word, whole against the
+#: 16-byte loads (1408: a partial last stage, 2048) or not (32, 96, 160: the
+#: 4-byte loads), N ragged (100, 228)
+_GROUPED_POP = [(1, 1, 32, 100), (1, 130, 2048, 228), (1, 17, 96, 100),
+                (1, 65, 1408, 228), (3, 4, 160, 228), (3, 16, 1408, 100),
+                (3, 33, 96, 228), (3, 64, 2048, 100), (3, 130, 160, 100),
+                (3, 1, 1408, 228), (64, 16, 2048, 100), (64, 4, 32, 228),
+                (64, 17, 1408, 228), (64, 65, 96, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k,n", _GROUPED_POP)
+@pytest.mark.parametrize("body", [bgemm.BINARY_POPCOUNT, tgemm.TERNARY_POPCOUNT],
+                         ids=lambda b: b.name)
+def test_grouped_pop_bodies_bit_equal_to_plain_and_ungrouped(cuda, body, g, m, k, n):
+    _check_grouped(cuda, body, g, m, k, n)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,m,k,n", [(3, 4, 160, 228), (64, 16, 1408, 100),
-                                     (3, 17, 2048, 100), (2, 130, 96, 228)])
+                                     (3, 17, 2048, 100), (2, 130, 96, 228),
+                                     (64, 16, 2048, 2816)])
 @pytest.mark.parametrize("mxu,popcount", [
     (bgemm.BINARY_MXU, bgemm.BINARY_POPCOUNT),
     (tgemm.TERNARY_MXU, tgemm.TERNARY_POPCOUNT)], ids=["binary", "ternary"])
 def test_grouped_mxu_kernel_equals_grouped_popcount_kernel(cuda, mxu, popcount, g, m,
                                                            k, n):
-    """A grouped mxu launch (K7's tile) and a grouped popcount launch (K3 /
-    K4) on the same operands give the same int32 accumulators."""
+    """A grouped mxu launch (K7's int8 tile) and a grouped popcount launch
+    (K3 / K4, the b1 tile) on the same operands give the same int32
+    accumulators; the last case is deepseek-moe-16b's up projection at the
+    4-slot decode tick."""
     gen = torch.Generator().manual_seed(g + m + k + n)
     parts = [_operands(mxu, m, n, k, gen) for _ in range(g)]
     x = tuple(torch.stack([p[0][j] for p in parts]).to(cuda) for j in range(mxu.n_x))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_port import CACHE_LEN, PAGE_SIZE, built, np_tree, prompts
+from _torch_port import one_torch_thread  # noqa: F401
 from repro.core.precision import POLICIES
 from repro.models import transformer as jtransformer
 from repro.models.common import ModelCtx as JCtx

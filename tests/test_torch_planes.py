@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from _torch_port import CACHE_LEN, PAGE_SIZE, built, np_tree, prompts
+from _torch_port import one_torch_thread  # noqa: F401
 from repro.core import pack as jpack
 from repro.core import qlinear as jqlinear
 from repro.core.precision import LayerQuant as JLayerQuant

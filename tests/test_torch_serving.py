@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from _torch_port import CACHE_LEN, PAGE_SIZE, built, np_tree, prompts
+from _torch_port import one_torch_thread  # noqa: F401
 from repro.core.precision import POLICIES
 from repro.launch.serve import Request as JRequest
 from repro.launch.serve import Server as JServer
